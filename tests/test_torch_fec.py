@@ -1,0 +1,443 @@
+"""FEC parity: the port's coders and decoders against the JAX package, on the CPU.
+
+Every parity here is against the reference's **float32** path (the XLA scans
+it runs off-TPU, and its Pallas kernels in interpret mode in float32), never
+its bf16 TPU numerics.  Inputs are made with numpy from a seed and handed to
+both packages.  Hard outputs (bits, CRC flags) must be equal exactly; float
+outputs to the tolerance stated at each test.
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import srslte_tpu.phy.fec.convolutional as j_conv
+import srslte_tpu.phy.fec.crc as j_crc
+import srslte_tpu.phy.fec.tdec as j_tdec
+import srslte_tpu.phy.fec.turbo as j_turbo
+import srslte_tpu.phy.phch.dlsch as j_dlsch
+import srslte_tpu_torch.phy.fec.convolutional as t_conv
+import srslte_tpu_torch.phy.fec.crc as t_crc
+import srslte_tpu_torch.phy.fec.tdec as t_tdec
+import srslte_tpu_torch.phy.fec.turbo as t_turbo
+import srslte_tpu_torch.phy.phch.dlsch as t_dlsch
+from srslte_tpu_torch import convert
+from srslte_tpu_torch._device import default_device
+from srslte_tpu_torch.ops import tdec_cuda, viterbi_cuda
+
+CPU = "cpu"
+torch.set_num_threads(1)  # several test workers share the machine's cores
+
+
+@functools.lru_cache(maxsize=None)
+def j_turbo_decode(k, n_iter):
+    """The reference's decoder, jitted once per (K, iterations):
+    (llr, apr0 or None) -> (hard, posterior, a-priori state)."""
+    return jax.jit(lambda llr, apr0=None: j_tdec.turbo_decode(
+        llr, k, n_iter=n_iter, apr0=apr0, return_state=True))
+
+
+def tt(x):
+    return torch.as_tensor(np.ascontiguousarray(x))
+
+
+def turbo_llrs(rng, n, k, snr_db=1.5):
+    """Encoded random blocks through BPSK + AWGN: (bits, dcat LLRs float32)."""
+    bits = rng.integers(0, 2, (n, k)).astype(np.uint8)
+    coded = j_turbo.turbo_encode_np(bits).astype(np.float32)
+    sigma = 10 ** (-snr_db / 20)
+    y = (1 - 2 * coded) + sigma * rng.standard_normal(coded.shape)
+    return bits, (-y * 2 / sigma**2).astype(np.float32)
+
+
+def assert_llr_close(got, ref, rel=1e-4):
+    """Float LLRs agree to rel * max|ref| (float32 sums taken in another
+    order), and hard decisions agree wherever |ref| exceeds that."""
+    got, ref = np.asarray(got), np.asarray(ref)
+    tol = rel * np.abs(ref).max()
+    assert np.abs(got - ref).max() <= tol
+    sure = np.abs(ref) > tol
+    assert np.array_equal((got > 0)[sure], (ref > 0)[sure])
+
+
+# ----------------------------------------------------------------- device
+def test_default_device_raises_without_cuda():
+    if torch.cuda.is_available():
+        assert default_device().type == "cuda"
+    else:
+        with pytest.raises(RuntimeError):
+            default_device()
+        with pytest.raises(RuntimeError):  # host data and no device named
+            t_turbo.turbo_encode(np.zeros((1, 40), np.uint8), 40)
+
+
+# ------------------------------------------------------------------- SISO
+@pytest.mark.parametrize("k,L,T", [(40, 8, 4), (1024, 128, 32), (2112, 256, 32),
+                                   (1056, 256, 32)])
+def test_siso_plain_matches_reference_scan(k, L, T):
+    """`_siso_windowed` (the kernel's plain version) vs the reference's f32
+    scan: the same adds and max in the same order, so equal to the last bit
+    (tolerance 0)."""
+    rng = np.random.default_rng(k)
+    _, llr = turbo_llrs(rng, 3, k)
+    d = k + 4
+    sys_, par = llr[:, :k], llr[:, d:d + k]
+    tx, tz = (rng.standard_normal((3, 3)).astype(np.float32) for _ in range(2))
+    ref = np.asarray(j_tdec._siso_windowed(jnp.asarray(sys_), jnp.asarray(par),
+                                           jnp.asarray(tx), jnp.asarray(tz), L, T))
+    got = t_tdec._siso_windowed(tt(sys_), tt(par), tt(tx), tt(tz), L, T).numpy()
+    np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(
+        t_tdec._tail_beta(tt(tx), tt(tz)).numpy(),
+        np.asarray(j_tdec._tail_beta(jnp.asarray(tx), jnp.asarray(tz))))
+
+
+@pytest.mark.parametrize("emit_ext,use_perm", [(False, False), (True, False), (True, True)])
+def test_siso_wrapper_options(emit_ext, use_perm):
+    """emit_ext and perm of `siso_windowed` (CPU tensor -> plain version) are
+    the reference scan on permuted input, minus that input: tolerance 0."""
+    k, L, T = 512, 128, 32
+    rng = np.random.default_rng(5)
+    _, llr = turbo_llrs(rng, 2, k)
+    sys_, par = llr[:, :k], llr[:, k + 4:2 * k + 4]
+    tx, tz = (rng.standard_normal((2, 3)).astype(np.float32) for _ in range(2))
+    pi = j_turbo.qpp_perm(k)
+    sa = sys_[:, pi] if use_perm else sys_
+    ref = np.asarray(j_tdec._siso_windowed(jnp.asarray(sa), jnp.asarray(par),
+                                           jnp.asarray(tx), jnp.asarray(tz), L, T))
+    if emit_ext:
+        ref = ref - sa
+    before = tdec_cuda.siso_windowed.launches
+    got = tdec_cuda.siso_windowed(
+        tt(sys_), tt(par), t_tdec._tail_beta(tt(tx), tt(tz)), L, T, emit_ext=emit_ext,
+        perm=tt(pi.astype(np.int32)) if use_perm else None).numpy()
+    np.testing.assert_array_equal(got, ref)
+    assert tdec_cuda.siso_windowed.launches == before  # no kernel on a CPU tensor
+
+
+@pytest.mark.parametrize("emit_ext", [False, True])
+def test_siso_plain_matches_pallas_interpreter(emit_ext):
+    """Against the reference's Pallas kernel itself (f32, interpret mode) at
+    the only size its interpreter compiles quickly, (K 40, L 8, T 4), with
+    the QPP permutation folded into the gather: tolerance 0."""
+    from srslte_tpu.ops.tdec_pallas import (prepare_beta_init, prepare_windows,
+                                            siso_from_windows)
+
+    k, B, L, T = 40, 3, 8, 4
+    rng = np.random.default_rng(7)
+    _, llr = turbo_llrs(rng, B, k)
+    sys_, par = llr[:, :k], llr[:, k + 4:2 * k + 4]
+    tx, tz = (rng.standard_normal((B, 3)).astype(np.float32) for _ in range(2))
+    pi = j_turbo.qpp_perm(k)
+    sa_w = prepare_windows(jnp.asarray(sys_), k, L, T, perm=jnp.asarray(pi))
+    pr_w = prepare_windows(jnp.asarray(par), k, L, T)
+    b0 = prepare_beta_init(jnp.asarray(tx), jnp.asarray(tz), B, k, L, T)
+    ref = np.asarray(siso_from_windows(sa_w, pr_w, b0, B, k, L, T, emit_ext=emit_ext))
+    got = tdec_cuda.siso_windowed(
+        tt(sys_), tt(par), t_tdec._tail_beta(tt(tx), tt(tz)), L, T, emit_ext=emit_ext,
+        perm=tt(pi.astype(np.int32))).numpy()
+    np.testing.assert_array_equal(got, ref)
+
+
+def test_siso_wrapper_rejects_what_the_kernel_does_not_take():
+    x = torch.zeros((2, 64))
+    b0 = torch.zeros((2, 8))
+    with pytest.raises(TypeError):
+        tdec_cuda.siso_windowed(x.double(), x.double(), b0.double(), 8, 4)
+    with pytest.raises(ValueError):
+        tdec_cuda.siso_windowed(x, x[:, :32], b0, 8, 4)
+    with pytest.raises(ValueError):
+        tdec_cuda.siso_windowed(x.T.contiguous().T, x, b0, 8, 4)  # not contiguous
+    with pytest.raises(TypeError):
+        tdec_cuda.siso_windowed(x, x, b0, 8, 4, perm=torch.arange(64))  # int64
+    with pytest.raises(ValueError):
+        viterbi_cuda.viterbi_decode(torch.zeros((2, 100)), 44)
+    with pytest.raises(TypeError):
+        viterbi_cuda.viterbi_decode(torch.zeros((2, 132), dtype=torch.float64), 44)
+
+
+# ----------------------------------------------------------- turbo decode
+@pytest.mark.parametrize("k", [40, 104])
+def test_short_block_decode(k):
+    """K < 256: full-length scans (`_siso`) in both packages; same ops on the
+    same inputs, so LLRs to 1e-5 of their scale and bits exactly."""
+    rng = np.random.default_rng(k)
+    bits, llr = turbo_llrs(rng, 4, k, snr_db=2.0)
+    hj, pj, _ = j_turbo_decode(k, 3)(jnp.asarray(llr))
+    ht, pt = t_tdec.turbo_decode(llr, k, n_iter=3, device=CPU)
+    assert_llr_close(pt.numpy(), pj, rel=1e-5)
+    np.testing.assert_array_equal(ht.numpy(), np.asarray(hj))
+    assert ht.dtype == torch.uint8
+
+
+@pytest.mark.parametrize("k", [512, 2112])
+def test_windowed_decode_and_warm_start(k):
+    """K >= 256: the port threads extrinsics (llr - (sys + apr)), the
+    reference's f32 path forms (llr - sys) - apr: the same values up to
+    float32 rounding, hence rel 1e-4 on the posterior; bits exact.  Then the
+    state carried across: 1 iteration in JAX, its a-priori through
+    `convert.apr_from_numpy`, 2 more in the port == 3 iterations in JAX."""
+    rng = np.random.default_rng(k)
+    bits, llr = turbo_llrs(rng, 3, k, snr_db=1.5)
+    hj, pj, apr3 = j_turbo_decode(k, 3)(jnp.asarray(llr))
+    ht, pt = t_tdec.turbo_decode(llr, k, n_iter=3, device=CPU)
+    assert_llr_close(pt.numpy(), pj)
+    np.testing.assert_array_equal(ht.numpy(), np.asarray(hj))
+    np.testing.assert_array_equal(ht.numpy(), bits)
+
+    _, _, apr = j_turbo_decode(k, 1)(jnp.asarray(llr))
+    apr0 = convert.apr_from_numpy(np.asarray(apr), device=CPU)
+    h2, p2, apr2 = t_tdec.turbo_decode(llr, k, n_iter=2, apr0=apr0, return_state=True,
+                                       device=CPU)
+    assert_llr_close(p2.numpy(), pj)
+    np.testing.assert_array_equal(h2.numpy(), np.asarray(hj))
+    assert_llr_close(apr2.numpy(), apr3)
+
+
+def test_resumable_state_carried_across():
+    """The state-threading path: the JAX package prepares a TurboState and
+    runs 1 iteration through its Pallas kernel (f32, interpret mode, at the
+    size the interpreter compiles quickly), the state goes through
+    `convert.turbo_state_from_numpy`, the port runs 2 more; the result is
+    held against 3 iterations in JAX.  Same arithmetic: tolerance 1e-5."""
+    k, B, L, T = 40, 3, 8, 4
+    rng = np.random.default_rng(11)
+    _, llr = turbo_llrs(rng, B, k)
+    st = j_tdec.turbo_start(jnp.asarray(llr), k, L=L, T=T)
+    assert st.sys_d.dtype == jnp.float32  # the reference's f32 numerics
+    st1 = j_tdec.turbo_step(st, k, 1, L=L, T=T, first=True)
+    st3 = j_tdec.turbo_step(st1, k, 2, L=L, T=T)
+    hj, pj, aj = j_tdec.turbo_hard(st3, k)
+
+    sys_, par1, par2, t1, t2 = j_tdec._split_dcat(jnp.asarray(llr), k)
+    as_np = lambda x: np.asarray(x, np.float32)
+    ts = convert.turbo_state_from_numpy(
+        as_np(sys_), as_np(par1), as_np(par2),
+        (tuple(map(as_np, t1)), tuple(map(as_np, t2))),
+        as_np(st1.e1), as_np(st1.ext2), as_np(st1.sc), device=CPU)
+    ts = t_tdec.turbo_step(ts, k, 2, L=L, T=T)
+    ht, pt, at = t_tdec.turbo_hard(ts, k)
+    assert_llr_close(pt.numpy(), pj, rel=1e-5)
+    assert_llr_close(at.numpy(), aj, rel=1e-5)
+    np.testing.assert_array_equal(ht.numpy(), np.asarray(hj))
+    # and a fresh state in the port equals the carried one
+    fresh = t_tdec.turbo_step(t_tdec.turbo_start(llr, k, L=L, T=T, device=CPU), k, 3,
+                              L=L, T=T, first=True)
+    assert_llr_close(t_tdec.turbo_hard(fresh, k)[1].numpy(), pj, rel=1e-5)
+    sub = t_tdec.turbo_take(fresh, torch.tensor([2, 0]), k)
+    np.testing.assert_array_equal(sub.e1.numpy(), fresh.e1.numpy()[[2, 0]])
+
+
+def test_default_window_and_state_supported():
+    for k in (40, 248, 256, 2040, 2048, 6144):
+        assert j_tdec.default_window(k) == t_tdec.default_window(k)
+        assert t_tdec.state_supported(k) == (k >= 256)
+
+
+# ------------------------------------------------- encoder / rate matching
+@pytest.mark.parametrize("k,e,f", [(40, 132, 0), (512, 700, 8), (1024, 4000, 0)])
+def test_turbo_encode_and_rate_matching(k, e, f):
+    rng = np.random.default_rng(k)
+    bits = rng.integers(0, 2, (2, 3, k)).astype(np.uint8)
+    dj = np.asarray(j_turbo.turbo_encode(jnp.asarray(bits), k))
+    dt = t_turbo.turbo_encode(bits, k, device=CPU)
+    np.testing.assert_array_equal(dt.numpy(), dj)
+    np.testing.assert_array_equal(
+        t_turbo.rm_tx(dt, k, e, 0, f).numpy(),
+        np.asarray(j_turbo.rm_tx(jnp.asarray(dj), k, e, 0, f)))
+    llr = rng.standard_normal((2, 3, e)).astype(np.float32)
+    # soft combining sums at most a few repeats of one position: rel 1e-6
+    np.testing.assert_allclose(
+        t_turbo.rm_rx(llr, k, 0, f, device=CPU).numpy(),
+        np.asarray(j_turbo.rm_rx(jnp.asarray(llr), k, 0, f)), rtol=1e-6, atol=1e-6)
+
+
+def test_crc_ok_device():
+    rng = np.random.default_rng(3)
+    poly, order = t_crc.LTE_CRC16
+    msg = rng.integers(0, 2, (5, 7, 28)).astype(np.uint8)
+    mask = rng.integers(0, 2, 16).astype(np.uint8)
+    cw = np.concatenate([msg, t_crc.crc_bits(msg, poly, order) ^ mask], -1)
+    cw[0, 0, 3] ^= 1
+    cw[4, 6, 40] ^= 1
+    ref = np.asarray(j_crc.crc_ok_device(jnp.asarray(cw), poly, order, rnti_mask=jnp.asarray(mask)))
+    got = t_crc.crc_ok_device(cw, poly, order, rnti_mask=mask, device=CPU).numpy()
+    np.testing.assert_array_equal(got, ref)
+    assert got.sum() == 33
+    pa, oa = t_crc.LTE_CRC24A
+    big = t_crc.crc_attach(rng.integers(0, 2, (2, 6000)).astype(np.uint8), pa, oa)
+    assert t_crc.crc_ok_device(big, pa, oa, device=CPU).all()
+
+
+# ------------------------------------------------------------ convolutional
+def test_conv_encode_and_rate_matching():
+    rng = np.random.default_rng(2)
+    bits = rng.integers(0, 2, (6, 44)).astype(np.uint8)
+    cj = np.asarray(j_conv.conv_encode(jnp.asarray(bits), 44))
+    ct = t_conv.conv_encode(bits, 44, device=CPU)
+    np.testing.assert_array_equal(ct.numpy(), cj)
+    np.testing.assert_array_equal(ct.numpy(), t_conv.conv_encode_np(bits))
+    for e in (72, 144, 288, 576):
+        np.testing.assert_array_equal(t_conv.rm_conv_tx(ct, e).numpy(),
+                                      np.asarray(j_conv.rm_conv_tx(jnp.asarray(cj), e)))
+        llr = rng.standard_normal((6, e)).astype(np.float32)
+        np.testing.assert_allclose(
+            t_conv.rm_conv_rx(llr, 132, device=CPU).numpy(),
+            np.asarray(j_conv.rm_conv_rx(jnp.asarray(llr), 132)), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("noise", [0.0, 0.8, "erased tail"])
+@pytest.mark.parametrize("tail_biting", [True, False])
+@pytest.mark.parametrize("length", [44, 27])
+def test_viterbi_matches_reference_scan(length, tail_biting, noise):
+    """The port's radix-2 Viterbi (the kernel's tie rules, no normalisation)
+    against the reference's radix-4 scan (normalised, argmax over four): the
+    decoded bits must be equal exactly, on noisy float LLRs and on clean ones
+    (where ties occur only between losing paths).  With the last 8 steps
+    erased (LLR 0) every end state ties and so does every decision of those
+    steps: the first maximum and predecessor A must win in both."""
+    rng = np.random.default_rng(length)
+    bits = rng.integers(0, 2, (24, length)).astype(np.uint8)
+    coded = j_conv.conv_encode_np(bits).astype(np.float32)
+    erased, noise = (True, 0.0) if noise == "erased tail" else (False, noise)
+    llr = (-(1.0 - 2.0 * coded) + noise * rng.standard_normal(coded.shape)).astype(np.float32)
+    if erased:
+        llr[:, -24:] = 0.0
+    ref = np.asarray(j_conv.viterbi_decode(jnp.asarray(llr), length, tail_biting=tail_biting,
+                                           backend="xla"))
+    got = t_conv.viterbi_decode(llr, length, tail_biting=tail_biting, device=CPU)
+    assert got.dtype == torch.uint8
+    np.testing.assert_array_equal(got.numpy(), ref)
+    if tail_biting and noise == 0.0 and not erased:
+        np.testing.assert_array_equal(got.numpy(), bits)
+
+
+@pytest.mark.parametrize("length,tail_biting", [(4, True), (8, False)])
+def test_viterbi_matches_pallas_interpreter(length, tail_biting):
+    """Against the reference's Pallas Viterbi kernel in interpret mode, at
+    the step counts its interpreter compiles in well under a minute (12 and
+    8 trellis steps): random float LLRs, bits equal exactly.  Not tail-biting
+    pins state 0, as the kernel's code does."""
+    rng = np.random.default_rng(length)
+    llr = rng.standard_normal((5, 3 * length)).astype(np.float32)
+    ref = np.asarray(j_conv.viterbi_decode(jnp.asarray(llr), length, tail_biting=tail_biting,
+                                           backend="pallas"))
+    got = t_conv.viterbi_decode(llr, length, tail_biting=tail_biting, device=CPU).numpy()
+    np.testing.assert_array_equal(got, ref)
+
+
+# ------------------------------------------------------------------ DL-SCH
+CASCADE_CFG = dict(tbs=488, G=1056, Qm=2)  # one code block of K 512 per TB
+CASCADE_N = 64  # TBs per batch: capacity 8, second capacity 2
+
+
+@functools.lru_cache(maxsize=None)
+def j_dlsch_decode(n_iter=5):
+    cfg = j_dlsch.DlschConfig(**CASCADE_CFG)
+    return jax.jit(lambda llr: j_dlsch.dlsch_decode(llr, cfg, n_iter=n_iter))
+
+
+@functools.lru_cache(maxsize=1)
+def cascade_pool():
+    """A pool of noisy TBs over a range of SNRs, with the number of turbo
+    iterations each needs before its CRC passes (99: never within 5),
+    measured with the port's own decoder one iteration at a time."""
+    cfg = t_dlsch.DlschConfig(**CASCADE_CFG)
+    rng = np.random.default_rng(0)
+    P = 320
+    bits = rng.integers(0, 2, (P, cfg.tbs)).astype(np.uint8)
+    coded = t_dlsch.dlsch_encode(bits, cfg, device=CPU).numpy().astype(np.float32)
+    sigma = 10 ** (-np.linspace(-0.5, 5.0, P)[:, None] / 20)
+    y = (1 - 2 * coded) + sigma * rng.standard_normal(coded.shape)
+    llr = (-y * 2 / sigma**2).astype(np.float32)
+    (K, f0, w), = t_dlsch._derm_clusters(tt(llr), cfg)
+    st = t_tdec.turbo_start(w.reshape(P, -1), K)
+    need = np.full(P, 99)
+    for it in range(1, 6):
+        st = t_tdec.turbo_step(st, K, 1, first=(it == 1))
+        ok = t_crc.crc_ok_device(t_tdec.turbo_hard(st, K)[0], *t_crc.LTE_CRC24A).numpy()
+        need[(need == 99) & ok] = it
+    return bits, llr, need
+
+
+# branch name -> (how many TBs of each iterations-needed class, the expected
+# trace of (batch, iterations) turbo_step calls for n_iter 5)
+N_, CAP, CAP2 = CASCADE_N, 8, 2
+CASCADE_CASES = {
+    "all_pass_after_early": ({1: N_}, [(N_, 1)]),
+    "all_pass_after_second": ({1: N_ - 5, 2: 5}, [(N_, 1), (N_, 1)]),
+    "compaction_then_clean": ({1: N_ - 8, 2: 5, 3: 3}, [(N_, 1), (N_, 1), (CAP, 1)]),
+    "second_compaction": ({1: N_ - 8, 2: 3, 3: 3, 4: 1, 99: 1},
+                          [(N_, 1), (N_, 1), (CAP, 1), (CAP2, 2)]),
+    "second_capacity_exceeded": ({1: N_ - 8, 2: 2, 3: 2, 4: 2, 5: 1, 99: 1},
+                                 [(N_, 1), (N_, 1), (CAP, 1), (CAP, 2)]),
+    "full_batch_fallback": ({1: N_ - 14, 2: 3, 3: 5, 4: 3, 5: 2, 99: 1},
+                            [(N_, 1), (N_, 1), (N_, 3)]),
+}
+
+
+@pytest.mark.parametrize("branch", list(CASCADE_CASES))
+def test_dlsch_decode_cascade(branch, monkeypatch):
+    """Every branch of the CRC-gated cascade (host branches on counts in the
+    port, `lax.cond` on traced counts in the reference): the same CRC flags,
+    and the same bits wherever the CRC passes.  The branch taken is read off
+    the (batch, iterations) trace of the port's turbo_step calls."""
+    mix, want_trace = CASCADE_CASES[branch]
+    bits, llr, need = cascade_pool()
+    rng = np.random.default_rng(len(branch))
+    rows = np.concatenate([rng.choice(np.flatnonzero(need == n), c, replace=False)
+                           for n, c in mix.items()])
+    rows = rng.permutation(rows)
+    assert len(rows) == CASCADE_N
+
+    trace = []
+    real_step = t_tdec.turbo_step
+
+    def logged_step(st, k, n_iter, *a, **kw):
+        trace.append((st.sys.shape[0], n_iter))
+        return real_step(st, k, n_iter, *a, **kw)
+
+    monkeypatch.setattr(t_dlsch.tdec, "turbo_step", logged_step)
+    cfg = t_dlsch.DlschConfig(**CASCADE_CFG)
+    got_bits, got_ok = t_dlsch.dlsch_decode(llr[rows], cfg, n_iter=5, device=CPU)
+    assert trace == want_trace
+
+    ref_bits, ref_ok = j_dlsch_decode()(jnp.asarray(llr[rows]))
+    ref_bits, ref_ok = np.asarray(ref_bits), np.asarray(ref_ok)
+    np.testing.assert_array_equal(got_ok.numpy(), ref_ok)
+    np.testing.assert_array_equal(got_ok.numpy(), need[rows] <= 5)
+    np.testing.assert_array_equal(got_bits.numpy()[ref_ok], ref_bits[ref_ok])
+    np.testing.assert_array_equal(got_bits.numpy()[ref_ok], bits[rows][ref_ok])
+    assert got_bits.dtype == torch.uint8 and got_ok.dtype == torch.bool
+
+
+@pytest.mark.parametrize("tbs,G,Qm,snr_db", [(6200, 14400, 4, 1.0), (208, 480, 2, 3.0)])
+def test_dlsch_encode_decode_multi_cb_and_short(tbs, G, Qm, snr_db):
+    """A TB of two code blocks with filler bits (one gather per K, CB CRCs),
+    and a TB below the windowed size (the a-priori-threading adapter):
+    encoders equal exactly; decoders, cascade and fixed-iteration, give the
+    same flags and the same bits where the CRC passes."""
+    jcfg, tcfg = j_dlsch.DlschConfig(tbs, G, Qm), t_dlsch.DlschConfig(tbs, G, Qm)
+    rng = np.random.default_rng(tbs)
+    bits = rng.integers(0, 2, (2, 3, tbs)).astype(np.uint8)
+    cj = np.asarray(jax.jit(lambda b: j_dlsch.dlsch_encode(b, jcfg))(jnp.asarray(bits)))
+    ct = t_dlsch.dlsch_encode(bits, tcfg, device=CPU).numpy()
+    np.testing.assert_array_equal(ct, cj)
+    sigma = 10 ** (-snr_db / 20)
+    y = (1 - 2 * ct.astype(np.float32)) + sigma * rng.standard_normal(ct.shape)
+    llr = (-y * 2 / sigma**2).astype(np.float32)
+    llr[1, 2] *= 0.05 * rng.standard_normal(G)  # one TB beyond repair
+    for kw in (dict(n_iter=4), dict(n_iter=3, early=0)):
+        bj, okj = jax.jit(lambda x: j_dlsch.dlsch_decode(x, jcfg, **kw))(jnp.asarray(llr))
+        bt, okt = t_dlsch.dlsch_decode(llr, tcfg, device=CPU, **kw)
+        okj = np.asarray(okj)
+        np.testing.assert_array_equal(okt.numpy(), okj)
+        assert okj.sum() == 5 and not okj[1, 2]
+        np.testing.assert_array_equal(bt.numpy()[okj], np.asarray(bj)[okj])
+        np.testing.assert_array_equal(bt.numpy()[okj], bits[okj])
+    with pytest.raises(NotImplementedError):
+        t_dlsch.dlsch_decode(llr, t_dlsch.DlschConfig(tbs, G, Qm, rv=1), device=CPU)

@@ -1,0 +1,367 @@
+"""The port's copies of the static table functions equal the JAX package's.
+
+`srslte_tpu_torch` imports nothing of `srslte_tpu`, so it keeps its own copy of
+every numpy table function it needs.  Each copy is held equal (exactly: these
+are integer tables, or float tables built by the same numpy expressions) to
+the reference's output here.  All on the CPU.
+"""
+
+import dataclasses
+import pathlib
+import re
+
+import numpy as np
+import pytest
+
+import srslte_tpu.phy.chest.chest_dl as j_chest
+import srslte_tpu.phy.chest.refsignal_dl as j_rs
+import srslte_tpu.phy.common.params as j_params
+import srslte_tpu.phy.common.scrambling as j_scr
+import srslte_tpu.phy.common.sequence as j_seq
+import srslte_tpu.phy.common.zc as j_zc
+import srslte_tpu.phy.fec.cbsegm as j_cbsegm
+import srslte_tpu.phy.fec.convolutional as j_conv
+import srslte_tpu.phy.fec.crc as j_crc
+import srslte_tpu.phy.fec.turbo as j_turbo
+import srslte_tpu.phy.modem.modem as j_modem
+import srslte_tpu.phy.ofdm as j_ofdm
+import srslte_tpu.phy.phch.dci as j_dci
+import srslte_tpu.phy.phch.dlsch as j_dlsch
+import srslte_tpu.phy.phch.pcfich as j_pcfich
+import srslte_tpu.phy.phch.pdcch as j_pdcch
+import srslte_tpu.phy.phch.pdsch as j_pdsch
+import srslte_tpu.phy.phch.ra as j_ra
+import srslte_tpu.phy.phch.regs as j_regs
+import srslte_tpu.phy.sync.sss as j_sss
+import srslte_tpu_torch.phy.chest.chest_dl as t_chest
+import srslte_tpu_torch.phy.chest.refsignal_dl as t_rs
+import srslte_tpu_torch.phy.common.params as t_params
+import srslte_tpu_torch.phy.common.scrambling as t_scr
+import srslte_tpu_torch.phy.common.sequence as t_seq
+import srslte_tpu_torch.phy.common.zc as t_zc
+import srslte_tpu_torch.phy.fec.cbsegm as t_cbsegm
+import srslte_tpu_torch.phy.fec.convolutional as t_conv
+import srslte_tpu_torch.phy.fec.crc as t_crc
+import srslte_tpu_torch.phy.fec.turbo as t_turbo
+import srslte_tpu_torch.phy.modem.modem as t_modem
+import srslte_tpu_torch.phy.ofdm as t_ofdm
+import srslte_tpu_torch.phy.phch.dci as t_dci
+import srslte_tpu_torch.phy.phch.dlsch as t_dlsch
+import srslte_tpu_torch.phy.phch.pcfich as t_pcfich
+import srslte_tpu_torch.phy.phch.pdcch as t_pdcch
+import srslte_tpu_torch.phy.phch.pdsch as t_pdsch
+import srslte_tpu_torch.phy.phch.ra as t_ra
+import srslte_tpu_torch.phy.phch.regs as t_regs
+import srslte_tpu_torch.phy.sync.sss as t_sss
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PRBS = (6, 15, 25, 50, 75, 100)
+
+
+def cells(n_prb, cell_id=1, **kw):
+    """The same cell in both packages."""
+    cp = kw.pop("cp", "norm")
+    return (j_params.Cell(n_prb=n_prb, id=cell_id, cp=j_params.CP(cp), **kw),
+            t_params.Cell(n_prb=n_prb, id=cell_id, cp=t_params.CP(cp), **kw))
+
+
+def eq(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    assert a.shape == b.shape and a.dtype == b.dtype
+    np.testing.assert_array_equal(a, b)
+
+
+# ---------------------------------------------------------------- imports
+def test_port_imports_nothing_of_jax_or_the_jax_package():
+    pat = re.compile(r"import jax|from jax|from srslte_tpu[ .]|import srslte_tpu( |$|\.)")
+    files = sorted((ROOT / "srslte_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 30
+    hits = [f"{f.relative_to(ROOT)}:{i + 1}: {line}"
+            for f in files for i, line in enumerate(f.read_text().splitlines())
+            if pat.search(line)]
+    assert hits == []
+    # the pattern itself must not take the port's own name for the reference's
+    assert not pat.search("from srslte_tpu_torch.phy import ofdm")
+    assert not pat.search("import srslte_tpu_torch.convert")
+    assert pat.search("from srslte_tpu.phy import ofdm") and pat.search("import srslte_tpu")
+
+
+# ----------------------------------------------------------------- params
+@pytest.mark.parametrize("cp", ["norm", "ext"])
+@pytest.mark.parametrize("n_prb", PRBS)
+def test_cell_and_ofdm_params(n_prb, cp):
+    jc, tc = cells(n_prb, 301, cp=cp)
+    assert {f.name for f in dataclasses.fields(jc)} == {f.name for f in dataclasses.fields(tc)}
+    for name in ("n_id_1", "n_id_2", "nof_re_sf"):
+        assert getattr(jc, name) == getattr(tc, name)
+    jo, to = jc.ofdm, tc.ofdm
+    for name in ("symbol_sz", "nof_re", "nof_guards", "nsymb_slot", "nsymb_sf",
+                 "slot_len", "sf_len", "srate"):
+        assert getattr(jo, name) == getattr(to, name)
+    assert jo.cp_lens_slot() == to.cp_lens_slot()
+    assert jo.symbol_offsets_slot() == to.symbol_offsets_slot()
+    assert j_params.sampling_freq_hz(n_prb) == t_params.sampling_freq_hz(n_prb)
+    assert j_params.nof_prb(jo.symbol_sz) == t_params.nof_prb(to.symbol_sz)
+
+
+# -------------------------------------------------------- gold / scrambling
+@pytest.mark.parametrize("seed,length", [(0, 31), (1, 32), (0x46 << 14, 1000),
+                                         (2**31 - 1, 82800), (123456, 7)])
+def test_gold_sequences(seed, length):
+    eq(j_seq.gold_sequence(seed, length), t_seq.gold_sequence(seed, length))
+    eq(j_seq.gold_sequence_signed(seed, length), t_seq.gold_sequence_signed(seed, length))
+
+
+def test_scrambling_seeds():
+    for sf in (0, 4, 9):
+        for cid in (0, 1, 503):
+            assert j_scr.pdsch_cinit(0x46, 0, sf, cid) == t_scr.pdsch_cinit(0x46, 0, sf, cid)
+            assert j_scr.pcfich_cinit(sf, cid) == t_scr.pcfich_cinit(sf, cid)
+            assert j_scr.pdcch_cinit(sf, cid) == t_scr.pdcch_cinit(sf, cid)
+            assert j_scr.pusch_cinit(0x46, sf, cid) == t_scr.pusch_cinit(0x46, sf, cid)
+            assert j_scr.pbch_cinit(cid) == t_scr.pbch_cinit(cid)
+
+
+# -------------------------------------------------------------------- crc
+@pytest.mark.parametrize("name", ["LTE_CRC24A", "LTE_CRC24B", "LTE_CRC16", "LTE_CRC8"])
+def test_crc_matrix_and_bits(name):
+    assert getattr(j_crc, name) == getattr(t_crc, name)
+    poly, order = getattr(t_crc, name)
+    for length in (1, 28, 44, 1000):
+        eq(j_crc.crc_matrix(length, poly, order), t_crc.crc_matrix(length, poly, order))
+    bits = np.random.default_rng(0).integers(0, 2, (3, 200)).astype(np.uint8)
+    eq(j_crc.crc_bits(bits, poly, order), t_crc.crc_bits(bits, poly, order))
+    eq(j_crc.crc_attach(bits, poly, order), t_crc.crc_attach(bits, poly, order))
+
+
+# ----------------------------------------------------------------- cbsegm
+def test_cb_sizes():
+    assert j_cbsegm.cb_sizes() == t_cbsegm.cb_sizes()
+    for k in (40, 512, 1024, 5824, 6144):
+        assert j_cbsegm.cb_index(k) == t_cbsegm.cb_index(k)
+
+
+@pytest.mark.parametrize("tbs", [16, 1000, 6120, 6121, 12960, 63776, 75376])
+def test_cbsegm(tbs):
+    assert dataclasses.asdict(j_cbsegm.cbsegm(tbs)) == dataclasses.asdict(t_cbsegm.cbsegm(tbs))
+
+
+# ------------------------------------------------------------------ turbo
+@pytest.mark.parametrize("k", [40, 512, 1024, 2112, 5824, 6144])
+def test_qpp_perm(k):
+    eq(j_turbo.qpp_perm(k), t_turbo.qpp_perm(k))
+    eq(j_turbo.qpp_perm_inv(k), t_turbo.qpp_perm_inv(k))
+
+
+def test_trellis_tables_and_encoder():
+    for a, b in zip(j_turbo.trellis_tables(), t_turbo.trellis_tables()):
+        eq(a, b)
+    eq(j_turbo._encoder_matrix(40), t_turbo._encoder_matrix(40))
+    bits = np.random.default_rng(1).integers(0, 2, (2, 104)).astype(np.uint8)
+    eq(j_turbo.turbo_encode_np(bits), t_turbo.turbo_encode_np(bits))
+
+
+@pytest.mark.parametrize("k,e,rv,f", [(40, 132, 0, 0), (40, 300, 0, 8), (512, 700, 0, 0),
+                                      (1024, 1500, 2, 0), (5824, 7524, 0, 0),
+                                      (5824, 7530, 0, 0)])
+def test_rate_matching_tables(k, e, rv, f):
+    eq(j_turbo.rm_indices(k, e, rv, f), t_turbo.rm_indices(k, e, rv, f))
+    (ji, jr), (ti, tr) = (j_turbo._rm_rx_inverse(k, e, rv, f, None),
+                          t_turbo._rm_rx_inverse(k, e, rv, f, None))
+    assert jr == tr
+    eq(ji, ti)
+    assert j_turbo.rm_k0(k, rv) == t_turbo.rm_k0(k, rv)
+
+
+# ---------------------------------------------------------- convolutional
+@pytest.mark.parametrize("length,e", [(44, 72), (44, 576), (27, 144), (40, 288)])
+def test_conv_tables(length, e):
+    eq(j_conv.rm_conv_indices(3 * length, e), t_conv.rm_conv_indices(3 * length, e))
+    for a, b in zip(j_conv._rm_conv_rx_inverse(3 * length, e),
+                    t_conv._rm_conv_rx_inverse(3 * length, e)):
+        eq(a, b)
+    eq(j_conv._encoder_matrix(length), t_conv._encoder_matrix(length))
+    for a, b in zip(j_conv._branch_tables(), t_conv._branch_tables()):
+        eq(a, b)
+
+
+def test_kernel_trellis_tables():
+    """The closed-form trellis tables of the kernels' plain versions (the
+    same closed forms the CUDA sources use) against the reference's tables."""
+    from srslte_tpu.phy.fec.tdec import _trellis_unrolled
+    from srslte_tpu_torch.ops.tdec_cuda import _trellis_index_tables
+    from srslte_tpu_torch.ops.viterbi_cuda import GENS, TB_ITER, _acs_tables
+
+    pred, code, signs = _acs_tables()
+    jpred, _, jbr = j_conv._pred_tables()  # [64, 2], [64, 2, 3] coded bits
+    eq(pred, jpred.astype(np.int64))
+    eq(signs[code], (2.0 * jbr - 1.0).astype(np.float32))
+    assert GENS == j_conv.GENS == t_conv.GENS and TB_ITER == j_conv.TB_ITER
+
+    pred8, gidx, n0, p0, n1, g1i = _trellis_index_tables()
+    preds, succs = _trellis_unrolled()
+    for sp in range(8):
+        branches = {(int(pred8[sp, b]), int(gidx[sp, b])) for b in (0, 1)}
+        assert branches == {(s, (u << 1) | p) for s, u, p in preds[sp]}
+        (jn0, jp0), (jn1, jp1) = succs[sp]
+        assert (n0[sp], p0[sp], n1[sp], g1i[sp]) == (jn0, jp0, jn1, 2 | jp1)
+
+
+# ------------------------------------------------------------------ modem
+@pytest.mark.parametrize("mod", ["BPSK", "QPSK", "QAM16", "QAM64", "QAM256"])
+def test_constellations(mod):
+    eq(j_modem.constellation(j_modem.Modulation[mod]),
+       t_modem.constellation(t_modem.Modulation[mod]))
+
+
+# ------------------------------------------------------------ regs / ra
+@pytest.mark.parametrize("n_prb,cell_id", [(6, 0), (6, 301), (25, 1), (25, 150), (50, 7),
+                                           (100, 1), (100, 503)])
+def test_reg_layout(n_prb, cell_id):
+    jc, tc = cells(n_prb, cell_id)
+    jl, tl = j_regs.reg_layout(jc), t_regs.reg_layout(tc)
+    eq(jl.pcfich_re, tl.pcfich_re)
+    eq(jl.phich_re, tl.phich_re)
+    assert jl.n_cce == tl.n_cce
+    for cfi in (1, 2, 3):
+        eq(jl.pdcch_re[cfi], tl.pdcch_re[cfi])
+        assert j_regs.nof_ctrl_symbols(jc, cfi) == t_regs.nof_ctrl_symbols(tc, cfi)
+
+
+def test_tbs_table_and_grants():
+    assert j_ra.TBS_TABLE == t_ra.TBS_TABLE
+    assert j_ra.DL_MCS_TO_ITBS == t_ra.DL_MCS_TO_ITBS
+    assert j_ra.TBS_FORMAT1C == t_ra.TBS_FORMAT1C
+    for n_prb in PRBS:
+        for mcs in (0, 9, 10, 16, 17, 27, 28):
+            jg, tg = j_ra.DlGrant.full(n_prb, mcs), t_ra.DlGrant.full(n_prb, mcs)
+            assert jg.tbs == tg.tbs and jg.prb_mask == tg.prb_mask
+            assert jg.modulation.name == tg.modulation.name
+        jg, tg = j_ra.DlGrant.type2(n_prb, 1, 4, 5), t_ra.DlGrant.type2(n_prb, 1, 4, 5)
+        assert (jg.prb_mask, jg.tbs, jg.n_prb) == (tg.prb_mask, tg.tbs, tg.n_prb)
+        assert j_ra.rbg_size(n_prb) == t_ra.rbg_size(n_prb)
+        for rb_start, l_crb in ((0, 1), (0, n_prb), (2, 3)):
+            riv = j_ra.riv_type2(n_prb, rb_start, l_crb)
+            assert riv == t_ra.riv_type2(n_prb, rb_start, l_crb)
+            assert j_ra.riv_type2_decode(n_prb, riv) == t_ra.riv_type2_decode(n_prb, riv)
+    assert t_ra.DlGrant.full(100, 27).tbs == 63776
+
+
+# -------------------------------------------------------------------- crs
+@pytest.mark.parametrize("n_prb,cell_id,sf_idx", [(6, 0, 0), (25, 150, 4), (100, 1, 4),
+                                                  (100, 503, 9)])
+def test_crs_tables(n_prb, cell_id, sf_idx):
+    jc, tc = cells(n_prb, cell_id)
+    eq(j_rs.crs_pilots(jc, sf_idx, 0), t_rs.crs_pilots(tc, sf_idx, 0))
+    eq(j_rs.crs_mask(jc), t_rs.crs_mask(tc))
+    for a, b in zip(j_rs.crs_re_indices(jc, 0), t_rs.crs_re_indices(tc, 0)):
+        eq(a, b)
+    assert j_rs.crs_sf_symbols(jc, 0) == t_rs.crs_sf_symbols(tc, 0)
+    # the estimator's interpolation matrix over the union pilot comb
+    allk = np.unique(j_rs.crs_re_indices(jc, 0)[1].reshape(-1))
+    eq(j_chest._interp_matrix(allk, jc.ofdm.nof_re), t_chest._interp_matrix(allk, tc.ofdm.nof_re))
+
+
+# ------------------------------------------------------------------ pdsch
+@pytest.mark.parametrize("n_prb,sf_idx,cfi,mcs", [(6, 0, 1, 9), (6, 4, 2, 20), (25, 5, 2, 16),
+                                                  (25, 4, 3, 27), (100, 4, 2, 27)])
+def test_pdsch_re_indices_and_config(n_prb, sf_idx, cfi, mcs):
+    jc, tc = cells(n_prb, 1)
+    jg, tg = j_ra.DlGrant.full(n_prb, mcs), t_ra.DlGrant.full(n_prb, mcs)
+    ps, pb = j_pdsch.sf_flags(sf_idx)
+    assert (ps, pb) == t_pdsch.sf_flags(sf_idx)
+    eq(j_pdsch.reserved_mask(jc, cfi, ps, pb), t_pdsch.reserved_mask(tc, cfi, ps, pb))
+    eq(j_pdsch.pdsch_re_indices(jc, jg.prb_mask, cfi, ps, pb),
+       t_pdsch.pdsch_re_indices(tc, tg.prb_mask, cfi, ps, pb))
+    jp = j_pdsch.Pdsch(jc, jg, sf_idx, cfi=cfi, rnti=0x46)
+    tp = t_pdsch.Pdsch(tc, tg, sf_idx, cfi=cfi, rnti=0x46)
+    eq(jp.re_idx, tp.re_idx)
+    assert jp.cinit == tp.cinit
+    assert dataclasses.asdict(jp.cfg) == dataclasses.asdict(tp.cfg)
+    assert [dataclasses.asdict(g) for g in jp.cfg.groups] == \
+        [dataclasses.asdict(g) for g in tp.cfg.groups]
+
+
+def test_main_path_shapes():
+    """The 20 MHz deployment's numbers, from the port's own tables."""
+    cell = t_params.Cell(n_prb=100, id=1, nof_ports=1)
+    grant = t_dci.Dci1A(rb_start=0, l_crb=100, mcs=27).grant(100)
+    cfg = t_pdsch.Pdsch(cell, grant, 4, cfi=2, rnti=0x46).cfg
+    assert (cfg.tbs, cfg.G, cfg.seg.C) == (63776, 82800, 11)
+    assert [(g.count, g.K, g.E) for g in cfg.groups] == [(5, 5824, 7524), (6, 5824, 7530)]
+    assert cell.ofdm.sf_len == 30720 and t_dci.format0_1a_size(100) == 28
+    locs = t_pdcch.ue_locations(t_pdcch.Pdcch(cell, 2, 4).n_cce, 0x46, 4)
+    locs += [l for l in t_pdcch.common_locations(t_pdcch.Pdcch(cell, 2, 4).n_cce)
+             if l not in locs]
+    assert len(locs) == 18 and t_pdcch.Location(8, 8) in locs
+
+
+# ------------------------------------------------------------------- ofdm
+@pytest.mark.parametrize("cp", ["norm", "ext"])
+@pytest.mark.parametrize("n_prb", PRBS)
+def test_ofdm_index_tables(n_prb, cp):
+    jc, tc = cells(n_prb, 1, cp=cp)
+    for normalize in (False, True):
+        jo, to = j_ofdm.Ofdm(jc.ofdm, normalize=normalize), t_ofdm.Ofdm(tc.ofdm, normalize=normalize)
+        eq(jo._cp_insert_idx, to._cp_insert_idx)
+        eq(jo._cp_strip_idx, to._cp_strip_idx)
+        eq(jo._re_to_bin, to._re_to_bin)
+        assert jo.dc == to.dc
+
+
+# ------------------------------------------------------------ pdcch / dci
+@pytest.mark.parametrize("n_cce", [6, 21, 41, 84])
+def test_search_spaces(n_cce):
+    as_tuples = lambda locs: [(l.cce, l.L) for l in locs]
+    for rnti in (0x46, 0x1234, 0xFFFF):
+        for sf_idx in range(10):
+            assert as_tuples(j_pdcch.ue_locations(n_cce, rnti, sf_idx)) == \
+                as_tuples(t_pdcch.ue_locations(n_cce, rnti, sf_idx))
+            assert j_pdcch.yk(rnti, sf_idx) == t_pdcch.yk(rnti, sf_idx)
+        eq(j_pdcch.rnti_mask(rnti), t_pdcch.rnti_mask(rnti))
+    assert as_tuples(j_pdcch.common_locations(n_cce)) == as_tuples(t_pdcch.common_locations(n_cce))
+
+
+@pytest.mark.parametrize("n_prb", PRBS)
+def test_dci_format1a(n_prb):
+    assert j_dci.format0_1a_size(n_prb) == t_dci.format0_1a_size(n_prb)
+    for rb_start, l_crb, mcs, rv in ((0, n_prb, 27, 0), (1, 3, 5, 2), (0, 1, 0, 1)):
+        jd = j_dci.Dci1A(rb_start, l_crb, mcs, harq_pid=3, ndi=1, rv=rv, tpc=1)
+        td = t_dci.Dci1A(rb_start, l_crb, mcs, harq_pid=3, ndi=1, rv=rv, tpc=1)
+        bits = t_dci.pack_format1a(td, n_prb)
+        eq(j_dci.pack_format1a(jd, n_prb), bits)
+        assert dataclasses.asdict(t_dci.unpack_format1a(bits, n_prb)) == \
+            dataclasses.asdict(j_dci.unpack_format1a(bits, n_prb)) == dataclasses.asdict(td)
+        jg, tg = jd.grant(n_prb), td.grant(n_prb)
+        assert (jg.prb_mask, jg.mcs, jg.rv, jg.tbs) == (tg.prb_mask, tg.mcs, tg.rv, tg.tbs)
+        # P/SI/RA-RNTI: TBS from the TPC bit, QPSK
+        jg, tg = jd.grant(n_prb, 0xFFFF), td.grant(n_prb, 0xFFFF)
+        assert (jg.tbs, jg.modulation.name) == (tg.tbs, tg.modulation.name)
+    zeros = np.zeros(t_dci.format0_1a_size(n_prb), np.uint8)
+    assert t_dci.unpack_format1a(zeros, n_prb) is None
+
+
+def test_pcfich_codebook():
+    eq(j_pcfich._CFI_CW, t_pcfich._CFI_CW)
+    for cid, sf in ((0, 0), (1, 4), (503, 9)):
+        eq(j_pcfich._codebook_signed(cid, sf), t_pcfich._codebook_signed(cid, sf))
+
+
+# -------------------------------------------------------------- pss / sss
+def test_sync_sequences():
+    for n_id_2 in range(3):
+        eq(j_zc.pss_sequence(n_id_2), t_zc.pss_sequence(n_id_2))
+        for n_id_1 in (0, 1, 100, 167):
+            for sf5 in (False, True):
+                eq(j_sss.sss_sequence(n_id_1, n_id_2, sf5), t_sss.sss_sequence(n_id_1, n_id_2, sf5))
+    eq(j_zc.zadoff_chu(25, 63), t_zc.zadoff_chu(25, 63))
+    eq(j_zc.zadoff_chu(7, 64, 1), t_zc.zadoff_chu(7, 64, 1))
+
+
+# ------------------------------------------------------------------ dlsch
+@pytest.mark.parametrize("tbs,G,Qm", [(1000, 2400, 2), (6200, 14400, 4), (63776, 82800, 6),
+                                      (12960, 30000, 6)])
+def test_dlsch_groups_and_derm_tables(tbs, G, Qm):
+    jcfg, tcfg = j_dlsch.DlschConfig(tbs, G, Qm), t_dlsch.DlschConfig(tbs, G, Qm)
+    assert [dataclasses.asdict(g) for g in jcfg.groups] == \
+        [dataclasses.asdict(g) for g in tcfg.groups]
