@@ -1,27 +1,35 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU: `python3 chip_smoke.py`.
 
-Builds the two hand-written CUDA kernels from `srslte_tpu_torch/csrc/`, holds
-each against its plain PyTorch version on the card, then drives the port's
-main path, the 20 MHz UE downlink receive chain at the srsUE cc_worker scope,
-through the entry points a user would call:
+Builds the hand-written CUDA kernels from `srslte_tpu_torch/csrc/` (the
+windowed turbo SISO in float32 and in 16 bits, and the Viterbi decoder),
+holds each against its plain PyTorch version on the card, then drives the
+port's two paths through the entry points a user would call, each at its
+deployment's full width, in batches of 128 subframes:
 
-    eNB encode (stimulus) -> AWGN -> UeDl.fft_estimate -> Pcfich.decode ->
-    Pdcch blind search (18 candidates) -> Pdsch.decode (turbo cascade)
-
-at the deployment's full width: 100 PRB, 1 port, normal CP, CFI 2, subframe 4,
-DCI 1A at Location(8, 8) for RNTI 0x46, PDSCH over all 100 PRB at mcs 27
-(64QAM), in batches of 128 subframes, clean and at 16 dB time-domain SNR.
+- the 20 MHz UE downlink receive chain at the srsUE cc_worker scope:
+  eNB encode (stimulus) -> AWGN -> UeDl.fft_estimate -> Pcfich.decode ->
+  Pdcch blind search (18 candidates) -> Pdsch.decode (turbo cascade);
+  100 PRB, 1 port, normal CP, CFI 2, subframe 4, DCI 1A at Location(8, 8)
+  for RNTI 0x46, PDSCH over all 100 PRB at mcs 27 (64QAM), clean and at
+  16 dB time-domain SNR (float32 SISO; one 16 dB dispatch in 16 bits);
+- the 20 MHz eNB PUSCH receive chain with UCI (srsENB's per-UE PUSCH
+  decode): UeUl.encode_pusch (stimulus) -> AWGN -> EnbUl.decode_pusch
+  (SC-FDMA, channel estimate, MMSE, DFT de-precoding, UCI demux with the
+  long CQI through the Viterbi kernel, UL-SCH turbo cascade); 100 PRB,
+  PUSCH on PRBs 2-97 at mcs 28 (64QAM), subframe 2, RNTI 0x46, 1-bit ACK and
+  a 30-bit CQI, clean and at 18 dB, with the SISO in float32 and in 16 bits.
 
 Exits non-zero on any failure, and when there is no CUDA device.  The line
 before the last is the card's name and power limit; the last line is
 `{"ok": true, "device": {...}}`.
 
-`python3 chip_smoke.py --profile` adds one dispatch under `torch.profiler`
-after phase 5 and prints the device's busy share and the kernels that take
-most of its time.
+`python3 chip_smoke.py --profile` adds one DL and one UL dispatch under
+`torch.profiler` and prints the device's busy share and the kernels that
+take most of its time.
 """
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -35,14 +43,36 @@ SNR_DB = 16.0
 CFI = 2
 RNTI = 0x46
 SF_IDX = 4
+UL_SNR_DB = 18.0  # upper shoulder of the mcs 28 TB waterfall
+UL_SF_IDX = 2
 BATCH = 128
 N_TIMED = 10  # the host clock of a shared machine has outliers: report the median
+BF16 = torch.bfloat16
+F32 = torch.float32
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): the bound of a kernel
-# is the larger of its bytes over the memory rate and its operations over the
-# float32 rate outside the tensor cores.
+# is the larger of its bytes over the memory rate and its operations over
+# the rate of their type.  Both SISOs and the Viterbi do scalar adds, max and
+# selects outside the tensor cores: float32, and in the 16-bit SISO one
+# unpacked bfloat16 intrinsic per operation, which issues at no more than
+# the float32 rate.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+
+# The shape each path gives each kernel at its first, full-batch launch (the
+# turbo cascade's later phases run on the code blocks that still fail).
+SISO_SHAPES = {"dl": (BATCH * 11, 5824, 256, 32),  # 11 code blocks of K 5824 per subframe
+               "ul": (BATCH * 12, 5952, 256, 32)}  # 12 code blocks of K 5952 per subframe
+VIT_SHAPES = {"dl": (BATCH * 18, 44),  # 18 PDCCH candidates, DCI 1A + CRC16
+              "ul": (BATCH, 38)}  # one long CQI per subframe: 30 bits + CRC8, tail-biting
+# The paths of the `kernels` line: (numerics, shape key); each kernel's
+# top-level numbers are those of the UL path in its numerics.
+PATHS = {"dl_f32": "dl", "dl_bf16": "dl", "ul_f32": "ul", "ul_bf16": "ul"}
+KERNEL_PATHS = {"siso_windowed": ("dl_f32", "ul_f32"),
+                "siso_windowed_bf16": ("dl_bf16", "ul_bf16"),
+                "viterbi_decode": ("dl_f32", "dl_bf16", "ul_f32", "ul_bf16")}
+MAIN_PATH = {"siso_windowed": "ul_f32", "siso_windowed_bf16": "ul_bf16",
+             "viterbi_decode": "ul_f32"}
 
 
 def check(cond, msg):
@@ -101,22 +131,94 @@ def turbo_siso_inputs(rng, B, K, snr_db=1.5):
     return sys_.contiguous(), par1.contiguous(), tdec._tail_beta(t1x, t1z)
 
 
+def bf16_siso_state(rng, B, K):
+    """A 16-bit decoder state on the card from realistic LLRs (as
+    `turbo_siso_inputs`), scaled and clipped by `tdec.turbo_start`."""
+    from srslte_tpu_torch.phy.fec import tdec, turbo
+
+    bits = rng.integers(0, 2, (B, K)).astype(np.uint8)
+    coded = turbo.turbo_encode(bits, K).to(torch.float32)
+    sigma = 10 ** (-1.5 / 20)
+    noise = torch.as_tensor(rng.standard_normal(coded.shape, dtype=np.float32), device=coded.device)
+    llr = -((1 - 2 * coded) + sigma * noise) * (2 / sigma**2)
+    return tdec.turbo_start(llr, K, siso_dtype=BF16)
+
+
+def bound(nbytes, nops):
+    """(bound ms, what bounds it, bytes ms, operations ms)."""
+    by, op = nbytes / HBM_BYTES_PER_S * 1e3, nops / FP32_OPS_PER_S * 1e3
+    return max(by, op), "bytes" if by >= op else "operations", by, op
+
+
+def time_siso(name, sys_, par, b0, pi, L, T):
+    """CUDA-event times of one SISO launch as the turbo step makes it
+    (extrinsic out, without and with the interleave), its plain version's,
+    and its bound."""
+    from srslte_tpu_torch.ops import tdec_cuda
+
+    B, K = sys_.shape
+    ms_nat = event_ms(lambda: tdec_cuda.siso_windowed(sys_, par, b0, L, T, emit_ext=True), 10)
+    ms_perm = event_ms(lambda: tdec_cuda.siso_windowed(sys_, par, b0, L, T, emit_ext=True,
+                                                       perm=pi), 10)
+    plain_ms = event_ms(lambda: tdec_cuda.siso_windowed_plain(sys_, par, b0, L, T,
+                                                              emit_ext=True, perm=pi), 1)
+    W, e = -(-K // L), sys_.element_size()
+    # bytes: sys, par, out [B, K] and beta_init [B, 8] in the metric type,
+    # perm [K] int32, each once; operations: per window T+L alpha steps (1
+    # add for gamma, 16 adds, 8 max), T+L beta steps (16 adds, 8 max), L LLRs
+    # (16 adds, 14 max, 2 subtractions); in 16 bits also the re-pinning of
+    # both metric vectors, 8 subtractions each per step
+    repin = 16 if sys_.dtype == BF16 else 0
+    b_ms, b_by, by, op = bound(3 * B * K * e + B * 8 * e + K * 4,
+                               B * W * ((T + L) * (25 + 24 + repin) + L * 32))
+    shape = f"B={B} K={K} L={L} T={T}"
+    print(f"[3 kernels] {name} {shape} emit_ext: {ms_nat:.3f} ms without perm, {ms_perm:.3f} ms "
+          f"with perm, plain version {plain_ms:.1f} ms, bound {b_ms:.4f} ms by {b_by} "
+          f"({by:.4f} ms bytes, {op:.4f} ms operations)", flush=True)
+    return {"shape": shape, "ms": (ms_nat + ms_perm) / 2, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def time_viterbi(llr, length):
+    """CUDA-event times of one tail-biting Viterbi launch, its plain
+    version's, and its bound."""
+    from srslte_tpu_torch.ops import viterbi_cuda
+
+    nc = llr.shape[0]
+    ms = event_ms(lambda: viterbi_cuda.viterbi_decode(llr, length, True), 20)
+    plain_ms = event_ms(lambda: viterbi_cuda.viterbi_decode_plain(llr, length, True), 1)
+    # bytes: llr [B, 3 len] float32 in, bits [B, len] uint8 out; operations
+    # per candidate and step (3 len steps, tail-biting by 3x repeat): 10 for
+    # the 8 branch metrics, 64 x (2 adds, 1 max, 1 compare); traceback 3
+    # integer operations per step
+    b_ms, b_by, by, op = bound(nc * 3 * length * 4 + nc * length,
+                               nc * 3 * length * (10 + 64 * 4 + 3))
+    shape = f"B={nc} len={length} tail-biting"
+    print(f"[3 kernels] viterbi_decode {shape}: {ms:.3f} ms, plain version {plain_ms:.1f} ms, "
+          f"bound {b_ms:.4f} ms by {b_by} ({by:.4f} ms bytes, {op:.4f} ms operations)",
+          flush=True)
+    return {"shape": shape, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
+
+
 def phase_kernels():
-    """Each kernel against its plain version on the card; returns the
-    measurements of the `kernels` line (without the launch counts)."""
+    """Each kernel against its plain version on the card, at a small shape
+    and at the shape each path gives it; returns per kernel its largest
+    difference and, per shape key of SISO_SHAPES / VIT_SHAPES, its times and
+    bound."""
     from srslte_tpu_torch.ops import tdec_cuda, viterbi_cuda
     from srslte_tpu_torch.phy.fec import convolutional, turbo
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(2024)
+    path_shapes = {v: k for k, v in SISO_SHAPES.items()}
 
     # --- SISO ------------------------------------------------------------
-    siso_err = 0.0
-    main_inputs = None
-    for (B, K, L, T) in ((64, 40, 8, 4), (64, 1024, 128, 32), (BATCH * 11, 5824, 256, 32)):
+    siso_err, siso_t = 0.0, {}
+    for (B, K, L, T) in ((64, 40, 8, 4), (64, 1024, 128, 32), *SISO_SHAPES.values()):
         sys_, par, b0 = turbo_siso_inputs(rng, B, K)
         pi = torch.as_tensor(turbo.qpp_perm(K).astype(np.int32), device=dev)
-        variants = [(False, None)] if K != 5824 else [
+        key = path_shapes.get((B, K, L, T))
+        variants = [(False, None)] if key is None else [
             (False, None), (True, None), (False, pi), (True, pi)]
         for emit_ext, perm in variants:
             got = tdec_cuda.siso_windowed(sys_, par, b0, L, T, emit_ext=emit_ext, perm=perm)
@@ -134,39 +236,49 @@ def phase_kernels():
             siso_err = max(siso_err, err)
             print(f"[3 kernels] siso_windowed B={B} K={K} L={L} T={T} emit_ext={emit_ext} "
                   f"perm={perm is not None}: max abs diff {err:.3g} (tolerance {tol:.3g})")
-        if K == 5824:
-            main_inputs = (sys_, par, b0, pi, L, T)
+        if key is not None:
+            siso_t[key] = time_siso("siso_windowed", sys_, par, b0, pi, L, T)
+        del sys_, par, b0
 
-    sys_, par, b0, pi, L, T = main_inputs
-    B, K = sys_.shape
-    ms_nat = event_ms(lambda: tdec_cuda.siso_windowed(sys_, par, b0, L, T, emit_ext=True), 10)
-    ms_perm = event_ms(lambda: tdec_cuda.siso_windowed(sys_, par, b0, L, T, emit_ext=True,
-                                                       perm=pi), 10)
-    plain_ms = event_ms(lambda: tdec_cuda.siso_windowed_plain(sys_, par, b0, L, T,
-                                                              emit_ext=True, perm=pi), 1)
-    W = -(-K // L)
-    # bytes: sys, par, out [B, K] float32, beta_init [B, 8], perm [K] int32,
-    # each once; operations: per window T+L alpha steps (1 add for gamma, 16
-    # adds, 8 max), T+L beta steps (16 adds, 8 max), L LLRs (16 adds, 14 max,
-    # 2 subtractions)
-    siso_bytes = 3 * B * K * 4 + B * 8 * 4 + K * 4
-    siso_ops = B * W * ((T + L) * (25 + 24) + L * 32)
-    siso = {"name": "siso_windowed", "route": "cuda",
-            "source": "srslte_tpu_torch/csrc/tdec_siso.cu",
-            "replaces": "srslte_tpu/ops/tdec_pallas.py:98",
-            "max_abs_err": siso_err, "ms": (ms_nat + ms_perm) / 2, "plain_ms": plain_ms,
-            "library_ms": None, "_bytes": siso_bytes, "_ops": siso_ops,
-            "_detail": f"B={B} K={K} L={L} T={T} emit_ext: {ms_nat:.3f} ms without perm, "
-                       f"{ms_perm:.3f} ms with perm"}
+    # --- SISO, 16 bits ----------------------------------------------------
+    # a ragged shape (K not a multiple of L, B not a multiple of 32) and the
+    # shape of each path; equal by value (max abs difference 0), -0.0 and
+    # 0.0 counting as equal
+    bf_err, bf_t = 0.0, {}
+    for (B, K, L, T) in ((77, 1008, 128, 32), *SISO_SHAPES.values()):
+        st = bf16_siso_state(rng, B, K)
+        pi = torch.as_tensor(turbo.qpp_perm(K).astype(np.int32), device=dev)
+        for emit_ext, perm in ((False, None), (True, None), (False, pi), (True, pi)):
+            got = tdec_cuda.siso_windowed(st.sys_sat, st.par1, st.b01, L, T,
+                                          emit_ext=emit_ext, perm=perm)
+            ref = tdec_cuda.siso_windowed_plain(st.sys_sat, st.par1, st.b01, L, T,
+                                                emit_ext=emit_ext, perm=perm)
+            torch.cuda.synchronize()
+            check(got.dtype == BF16 and bool(torch.isfinite(got.float()).all()),
+                  f"16-bit SISO K={K}: type or non-finite output")
+            err = float((got.float() - ref.float()).abs().max())
+            check(err == 0.0, f"16-bit SISO B={B} K={K} L={L} T={T} ext={emit_ext} "
+                              f"perm={perm is not None}: max abs diff {err}")
+            bf_err = max(bf_err, err)
+            print(f"[3 kernels] siso_windowed bf16 B={B} K={K} L={L} T={T} emit_ext={emit_ext} "
+                  f"perm={perm is not None}: max abs diff {err} (max |llr| "
+                  f"{float(ref.float().abs().max()):.4g})")
+        key = path_shapes.get((B, K, L, T))
+        if key is not None:
+            bf_t[key] = time_siso("siso_windowed_bf16", st.sys_sat, st.par1, st.b01, pi, L, T)
+        del st
 
     # --- Viterbi ---------------------------------------------------------
-    nc = BATCH * 18
-    vit_err = 0
-    main_llr = None
-    for length in (44, 27):
+    # the DL's two DCI lengths with and without tail-biting, and the UL's
+    # long CQI as the path runs it (tail-biting)
+    vit_err, vit_t = 0, {}
+    vit_path = {v: k for k, v in VIT_SHAPES.items()}
+    for nc, length, tb_settings in ((BATCH * 18, 44, (True, False)),
+                                    (BATCH * 18, 27, (True, False)),
+                                    (*VIT_SHAPES["ul"], (True,))):
         bits = rng.integers(0, 2, (nc, length)).astype(np.uint8)
         coded = convolutional.conv_encode(bits, length).to(torch.float32)
-        for tail_biting in (True, False):
+        for tail_biting in tb_settings:
             # clean, noisy, and clean with the last 8 steps erased (LLR 0): there
             # every end state ties, which is what tells the first maximum from
             # another, and every decision of those steps is a tie
@@ -180,39 +292,26 @@ def phase_kernels():
                 ref = viterbi_cuda.viterbi_decode_plain(llr, length, tail_biting)
                 torch.cuda.synchronize()
                 nbad = int((got != ref).sum())
-                check(nbad == 0, f"Viterbi len={length} tail_biting={tail_biting} {kind}: "
+                check(nbad == 0, f"Viterbi B={nc} len={length} tail_biting={tail_biting} {kind}: "
                                  f"{nbad} bits differ from the plain version")
                 if tail_biting and kind != "erased tail":
                     ber = float((got.cpu().numpy() != bits).mean())
                     check(ber < (1e-9 if kind == "clean" else 1e-2),
-                          f"Viterbi len={length} {kind}: BER {ber}")
+                          f"Viterbi B={nc} len={length} {kind}: BER {ber}")
                 vit_err = max(vit_err, nbad)
                 print(f"[3 kernels] viterbi_decode B={nc} len={length} tail_biting={tail_biting} "
                       f"{kind}: bits equal to the plain version")
-                if length == 44 and tail_biting and kind == "noisy":
-                    main_llr = llr
-    ms = event_ms(lambda: viterbi_cuda.viterbi_decode(main_llr, 44, True), 20)
-    plain_ms = event_ms(lambda: viterbi_cuda.viterbi_decode_plain(main_llr, 44, True), 1)
-    steps = 3 * 44
-    # bytes: llr [B, 132] float32 in, bits [B, 44] uint8 out; operations per
-    # candidate and step: 10 for the 8 branch metrics, 64 x (2 adds, 1 max,
-    # 1 compare); traceback 3 integer operations per step
-    vit_bytes = nc * 132 * 4 + nc * 44
-    vit_ops = nc * steps * (10 + 64 * 4 + 3)
-    vit = {"name": "viterbi_decode", "route": "cuda",
-           "source": "srslte_tpu_torch/csrc/viterbi.cu",
-           "replaces": "srslte_tpu/ops/viterbi_pallas.py:58",
-           "max_abs_err": float(vit_err), "ms": ms, "plain_ms": plain_ms,
-           "library_ms": None, "_bytes": vit_bytes, "_ops": vit_ops,
-           "_detail": f"B={nc} len=44 tail-biting (132 steps)"}
-    for k in (siso, vit):
-        by, op = k.pop("_bytes") / HBM_BYTES_PER_S * 1e3, k.pop("_ops") / FP32_OPS_PER_S * 1e3
-        k["bound_ms"], k["bound_by"] = max(by, op), "bytes" if by >= op else "operations"
-        print(f"[3 kernels] {k['name']} at the main path's shape ({k.pop('_detail')}): "
-              f"{k['ms']:.3f} ms/launch, plain version {k['plain_ms']:.1f} ms, bound "
-              f"{k['bound_ms']:.4f} ms by {k['bound_by']} ({by:.4f} ms bytes, {op:.4f} ms "
-              f"operations); no single PyTorch call computes this", flush=True)
-    return [siso, vit]
+                key = vit_path.get((nc, length))
+                if key is not None and tail_biting and kind == "noisy":
+                    vit_t[key] = time_viterbi(llr, length)
+
+    common = {"route": "cuda", "source": "srslte_tpu_torch/csrc/tdec_siso.cu",
+              "replaces": "srslte_tpu/ops/tdec_pallas.py:98", "library_ms": None}
+    return {"siso_windowed": {**common, "max_abs_err": siso_err, "_times": siso_t},
+            "siso_windowed_bf16": {**common, "max_abs_err": bf_err, "_times": bf_t},
+            "viterbi_decode": {**common, "source": "srslte_tpu_torch/csrc/viterbi.cu",
+                               "replaces": "srslte_tpu/ops/viterbi_pallas.py:58",
+                               "max_abs_err": float(vit_err), "_times": vit_t}}
 
 
 class Chain:
@@ -264,7 +363,7 @@ class Chain:
         g = self.enb.put_pdsch(g, self.pdsch, bits)
         return bits, self.enb.gen_signal(g)[..., 0, :]
 
-    def decode(self, s, snr_db, gen, stages=None):
+    def decode(self, s, snr_db, gen, stages=None, siso_dtype=F32):
         """One dispatch of the receive chain on BATCH subframes; noise is
         drawn anew from `gen` (none for snr_db None).  Returns the decoded
         bits and, per subframe, TB ok, DCI ok, CFI ok."""
@@ -289,7 +388,7 @@ class Chain:
         match = torch.all(cand == self.dci_bits_t, dim=-1)
         dci_ok = torch.any(ok & match, dim=-1)
         mark("pdcch_search")
-        bits, tb_ok = self.pdsch.decode(grid, ce, info["noise"])
+        bits, tb_ok = self.pdsch.decode(grid, ce, info["noise"], siso_dtype=siso_dtype)
         mark("pdsch_decode")
         return bits, tb_ok, dci_ok, cfi_dec == CFI
 
@@ -298,6 +397,7 @@ def reset_counts():
     from srslte_tpu_torch.ops import tdec_cuda, viterbi_cuda
 
     tdec_cuda.siso_windowed.launches = 0
+    tdec_cuda.siso_windowed.launches_bf16 = 0
     viterbi_cuda.viterbi_decode.launches = 0
 
 
@@ -305,17 +405,21 @@ def read_counts():
     from srslte_tpu_torch.ops import tdec_cuda, viterbi_cuda
 
     return {"siso_windowed": tdec_cuda.siso_windowed.launches,
+            "siso_windowed_bf16": tdec_cuda.siso_windowed.launches_bf16,
             "viterbi_decode": viterbi_cuda.viterbi_decode.launches}
 
 
-def counted_dispatch(chain, s, snr_db, gen):
-    """One dispatch with the launch counts set to 0 just before and read just after."""
+def counted_dispatch(chain, s, snr_db, gen, siso_dtype=F32):
+    """One dispatch of a path (DL `Chain` or `UlChain`) with the launch
+    counts set to 0 just before and read just after; fails unless the SISO
+    of the dispatch's numerics and the Viterbi were launched."""
     reset_counts()
-    out = chain.decode(s, snr_db, gen)
+    out = chain.decode(s, snr_db, gen, siso_dtype=siso_dtype)
     torch.cuda.synchronize()
     counts = read_counts()
-    for name, n in counts.items():
-        check(n > 0, f"the main path did not launch the {name} kernel")
+    for name in ("siso_windowed_bf16" if siso_dtype == BF16 else "siso_windowed",
+                 "viterbi_decode"):
+        check(counts[name] > 0, f"the path did not launch the {name} kernel")
     return out, counts
 
 
@@ -332,6 +436,9 @@ def phase_clean(chain, bits, s):
 
 
 def phase_noisy(chain, bits, s):
+    """DL at SNR_DB: a counted dispatch in float32 and one in 16 bits on the
+    same noise draw, then the timed dispatches; returns the launch counts of
+    the two counted dispatches and the median dispatch time."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1234)
     (dec, tb_ok, dci_ok, cfi_ok), counts = counted_dispatch(chain, s, SNR_DB, gen)
@@ -342,6 +449,17 @@ def phase_noisy(chain, bits, s):
     check(bool((dec[tb_ok] == bits[tb_ok]).all()), "a TB that passed CRC differs from the bits sent")
     print(f"[5 main path, {SNR_DB} dB] first dispatch: CFI {BATCH}/{BATCH}, DCI {BATCH}/{BATCH}, "
           f"TB ok {n_ok}/{BATCH}; kernel launches in this dispatch {counts}", flush=True)
+    gen16 = torch.Generator(device="cuda")
+    gen16.manual_seed(1234)  # the same noise draw as the float32 dispatch
+    (dec16, tb16, dci16, cfi16), counts16 = counted_dispatch(chain, s, SNR_DB, gen16,
+                                                             siso_dtype=BF16)
+    n16 = int(tb16.sum())
+    check(bool(dci16.all()) and bool(cfi16.all()), "CFI or DCI lost in the 16-bit dispatch")
+    check(n16 >= 0.8 * BATCH, f"16-bit SISO: BLER implausibly high: {n16}/{BATCH}")
+    check(bool((dec16[tb16] == bits[tb16]).all()), "16-bit: a TB that passed CRC differs")
+    print(f"[5 main path, {SNR_DB} dB] the same noise draw with the SISO in 16 bits: TB ok "
+          f"{n16}/{BATCH} (float32: {n_ok}/{BATCH}), TB BLER {1 - n16 / BATCH:.4f} against "
+          f"{1 - n_ok / BATCH:.4f}; launches {counts16}", flush=True)
 
     times, tb_total = [], n_ok
     for _ in range(N_TIMED):
@@ -366,21 +484,173 @@ def phase_noisy(chain, bits, s):
           f"{BATCH * (N_TIMED + 1)} TBs {bler:.4f}")
     print(f"[5 main path, {SNR_DB} dB] one more dispatch with a synchronise after each stage, "
           f"ms: {split}", flush=True)
-    return counts, ms
+    return counts, counts16, ms
 
 
-def phase_profile(chain, s, dispatch_ms):
-    """One 16 dB dispatch under torch.profiler: the device's kernel time by
-    name, and its share of an unprofiled dispatch (`dispatch_ms`)."""
+class UlChain:
+    """The UL deployment's objects and the two sides of its path."""
+
+    def __init__(self):
+        from srslte_tpu_torch.phy.common.params import Cell
+        from srslte_tpu_torch.phy.enb.enb_ul import EnbUl
+        from srslte_tpu_torch.phy.phch.pusch import Pusch
+        from srslte_tpu_torch.phy.phch.ra_ul import UlGrant
+        from srslte_tpu_torch.phy.phch.uci import UciCfgUl
+        from srslte_tpu_torch.phy.ue.ue_ul import UeUl
+
+        self.cell = Cell(n_prb=100, id=1, nof_ports=1)
+        # 96 PRB: the largest DFT size (2^5 * 3) that leaves PRBs 0-1 and
+        # 98-99 for PUCCH; 30-bit CQI: aperiodic mode 3-0 at 100 PRB
+        self.pusch = Pusch(self.cell, UlGrant(prb_start=2, n_prb=96, mcs=28), UL_SF_IDX,
+                           RNTI, UciCfgUl(o_ack=1, o_cqi=30))
+        self.ue = UeUl(self.cell)
+        self.enb = EnbUl(self.cell)
+        cfg = self.pusch.cfg
+        check((cfg.tbs, cfg.G, cfg.seg.C, cfg.seg.K1) == (71112, 82860, 12, 5952),
+              f"unexpected UL-SCH bucket {cfg.tbs, cfg.G, cfg.seg.C, cfg.seg.K1}")
+
+    def encode(self, seed):
+        """BATCH subframes of stimulus: bits [B, tbs], ACK [B, 1] on the card,
+        CQI [B, 30] on the host, samples [B, sf_len]."""
+        rng = np.random.default_rng(seed)
+        bits = torch.as_tensor(rng.integers(0, 2, (BATCH, self.pusch.grant.tbs), dtype=np.uint8),
+                               device="cuda")
+        ack = torch.as_tensor(rng.integers(0, 2, (BATCH, 1), dtype=np.uint8), device="cuda")
+        cqi = rng.integers(0, 2, (BATCH, 30), dtype=np.uint8)
+        s = self.ue.encode_pusch(self.pusch, bits, ack=ack, cqi=cqi)
+        return bits, ack, torch.as_tensor(cqi, device="cuda"), s
+
+    @staticmethod
+    def noisy(s, snr_db, gen):
+        """s with AWGN at snr_db drawn anew from `gen` (s itself for None)."""
+        if snr_db is None:
+            return s
+        sigma = torch.sqrt(torch.mean(torch.abs(s) ** 2) / (10.0 ** (snr_db / 10.0)) / 2.0)
+        n = torch.randn((2,) + s.shape, generator=gen, device=s.device) * sigma
+        return s + torch.complex(n[0], n[1])
+
+    def decode(self, s, snr_db, gen, siso_dtype=F32):
+        """One dispatch of EnbUl.decode_pusch on BATCH subframes."""
+        return self.enb.decode_pusch(self.noisy(s, snr_db, gen), self.pusch, siso_dtype=siso_dtype)
+
+
+@contextlib.contextmanager
+def stage_marks(stages):
+    """While open, the stages that EnbUl.decode_pusch calls synchronise and
+    append (stage name, host time) to `stages` as they return: the real
+    entry point is timed, not a copy of its composition."""
+    from srslte_tpu_torch.phy.chest.chest_ul import ChestUl
+    from srslte_tpu_torch.phy.ofdm import Ofdm
+    from srslte_tpu_torch.phy.phch import pusch
+
+    hooks = ((Ofdm, "rx_sf", "rx_sf"), (ChestUl, "estimate", "chest"),
+             (pusch.Pusch, "soft_bits", "equalise_deprecode_demod"),
+             (pusch.Pusch, "demux", "uci_demux_viterbi"), (pusch, "dlsch_decode", "dlsch_decode"))
+    saved = [(owner, attr, getattr(owner, attr)) for owner, attr, _ in hooks]
+
+    def marked(fn, name):
+        def call(*args, **kw):
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            stages.append((name, time.perf_counter()))
+            return out
+        return call
+
+    for (owner, attr, fn), (_, _, name) in zip(saved, hooks):
+        setattr(owner, attr, marked(fn, name))
+    try:
+        yield [name for _, _, name in hooks]
+    finally:
+        for owner, attr, fn in saved:
+            setattr(owner, attr, fn)
+
+
+def ul_score(out, bits, ack, cqi):
+    """(TB ok, ACK right, CQI right and its CRC8 passing) counts of a dispatch;
+    fails if a TB that passed its CRC differs from the bits sent."""
+    dec, tb_ok, info = out
+    check(dec.shape == bits.shape and dec.dtype == torch.uint8, "decoded UL TB shape or type")
+    check(bool((dec[tb_ok] == bits[tb_ok]).all()), "a UL TB that passed CRC differs from the bits sent")
+    ack_ok = (info["ack"] == ack)[:, 0]
+    cqi_ok = torch.all(info["cqi"] == cqi, dim=-1) & (info["cqi_metric"] == 1.0)
+    return int(tb_ok.sum()), int(ack_ok.sum()), int(cqi_ok.sum())
+
+
+def phase_ul(ul, bits, ack, cqi, s):
+    """UL clean and at UL_SNR_DB, in both numerics; returns the launch counts
+    of the counted noisy dispatch of each numerics ("ul_f32", "ul_bf16") and
+    the float32 median dispatch time."""
+    counts_ul = {}
+    for dt in (F32, BF16):
+        name = "float32" if dt == F32 else "16-bit"
+        out, counts = counted_dispatch(ul, s, None, None, dt)
+        n_tb, n_ack, n_cqi = ul_score(out, bits, ack, cqi)
+        check((n_tb, n_ack, n_cqi) == (BATCH,) * 3,
+              f"UL clean, {name} SISO: TB {n_tb}, ACK {n_ack}, CQI {n_cqi} of {BATCH}")
+        print(f"[6 UL path, clean, {name} SISO] {BATCH} subframes: every TB passes CRC and equals "
+              f"the bits sent, every ACK and CQI right (CQI CRC8 passes); launches {counts}",
+              flush=True)
+
+    medians = {}
+    for dt in (F32, BF16):
+        name = "float32" if dt == F32 else "16-bit"
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(4321)  # the same noise draws in both numerics
+        out, counts = counted_dispatch(ul, s, UL_SNR_DB, gen, dt)
+        counts_ul["ul_f32" if dt == F32 else "ul_bf16"] = counts
+        n_tb, n_ack, n_cqi = ul_score(out, bits, ack, cqi)
+        check(n_tb >= 0.8 * BATCH, f"UL {name}: TB ok {n_tb}/{BATCH} below 80 %")
+        check(min(n_ack, n_cqi) >= 0.99 * BATCH,
+              f"UL {name}: ACK {n_ack}/{BATCH}, CQI {n_cqi}/{BATCH} below 99 %")
+        print(f"[7 UL path, {UL_SNR_DB} dB, {name} SISO] first dispatch: TB ok {n_tb}/{BATCH}, "
+              f"ACK {n_ack}/{BATCH}, CQI {n_cqi}/{BATCH}; kernel launches in this dispatch "
+              f"{counts}", flush=True)
+        totals = [n_tb, n_ack, n_cqi]
+        times = []
+        for _ in range(N_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = ul.decode(s, UL_SNR_DB, gen, siso_dtype=dt)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            totals = [a + b for a, b in zip(totals, ul_score(out, bits, ack, cqi))]
+        n = BATCH * (N_TIMED + 1)
+        check(totals[0] >= 0.8 * n and min(totals[1:]) >= 0.99 * n,
+              f"UL {name} over {n} subframes: TB {totals[0]}, ACK {totals[1]}, CQI {totals[2]}")
+        ms = float(np.median(times))
+        medians[name] = ms
+        msps = BATCH * ul.cell.ofdm.sf_len / (ms * 1e-3) / 1e6
+        torch.cuda.synchronize()
+        stages = [("start", time.perf_counter())]
+        rx = ul.noisy(s, UL_SNR_DB, gen)
+        torch.cuda.synchronize()
+        stages.append(("awgn", time.perf_counter()))
+        with stage_marks(stages) as names:
+            ul.enb.decode_pusch(rx, ul.pusch, siso_dtype=dt)
+        check([nm for nm, _ in stages] == ["start", "awgn"] + names,
+              f"UL stages ran out of order: {[nm for nm, _ in stages]}")
+        split = ", ".join(f"{nm} {(t - stages[i][1]) * 1e3:.2f}"
+                          for i, (nm, t) in enumerate(stages[1:]))
+        print(f"[7 UL path, {UL_SNR_DB} dB, {name} SISO] {N_TIMED} timed dispatches of {BATCH} "
+              f"subframes: {[round(t, 3) for t in times]} ms, median {ms:.3f} ms/dispatch = "
+              f"{msps:.2f} Msamples/s ({msps / REALTIME_MSPS:.2f} x real time at 100 PRB); over "
+              f"{n} subframes TB BLER {1 - totals[0] / n:.4f}, ACK errors {n - totals[1]}, CQI "
+              f"errors {n - totals[2]}")
+        print(f"[7 UL path, {UL_SNR_DB} dB, {name} SISO] one more dispatch with a synchronise "
+              f"after each stage, ms: {split}", flush=True)
+    return counts_ul, medians["float32"]
+
+
+def phase_profile(label, run, dispatch_ms):
+    """One dispatch (`run()`) under torch.profiler: the device's kernel time
+    by name, and its share of an unprofiled dispatch (`dispatch_ms`)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(99)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        chain.decode(s, SNR_DB, gen)
+        run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     # kernel events only: an operator's row repeats the time of its kernels
@@ -389,12 +659,12 @@ def phase_profile(chain, s, dispatch_ms):
                   reverse=True)
     busy_us = sum(r[0] for r in rows)
     check(busy_us > 0, "the profiler saw no device time")
-    print(f"[profile] one dispatch under the profiler ({wall_us / 1e3:.2f} ms on the host clock "
-          f"with its overhead): {sum(r[1] for r in rows)} kernels and copies, device busy "
+    print(f"[profile {label}] one dispatch under the profiler ({wall_us / 1e3:.2f} ms on the host "
+          f"clock with its overhead): {sum(r[1] for r in rows)} kernels and copies, device busy "
           f"{busy_us / 1e3:.2f} ms = {100 * busy_us / (dispatch_ms * 1e3):.1f} % of an unprofiled "
           f"dispatch ({dispatch_ms:.3f} ms), idle share {100 - 100 * busy_us / (dispatch_ms * 1e3):.1f} %")
     for us, count, key in rows[:14]:
-        print(f"[profile]   {us / 1e3:8.3f} ms  {count:5d} x  {key[:90]}")
+        print(f"[profile {label}]   {us / 1e3:8.3f} ms  {count:5d} x  {key[:90]}")
     sys.stdout.flush()
 
 
@@ -411,12 +681,36 @@ def main():
     print(f"[4 main path] stimulus: {BATCH} subframes encoded on the card in "
           f"{time.perf_counter() - t0:.1f} s (tables built and uploaded on first use)", flush=True)
     phase_clean(chain, bits, s)
-    counts, dispatch_ms = phase_noisy(chain, bits, s)
+    counts_dl, counts_dl16, dispatch_ms = phase_noisy(chain, bits, s)
+
+    ul = UlChain()
+    t0 = time.perf_counter()
+    ul_bits, ack, cqi, ul_s = ul.encode(seed=37)
+    torch.cuda.synchronize()
+    check(ul_s.shape == (BATCH, 30720) and bool(torch.isfinite(torch.view_as_real(ul_s)).all()),
+          "UL stimulus shape or values")
+    print(f"[6 UL path] stimulus: {BATCH} subframes encoded on the card by UeUl in "
+          f"{time.perf_counter() - t0:.1f} s (tables built and uploaded on first use)", flush=True)
+    counts_ul, ul_ms = phase_ul(ul, ul_bits, ack, cqi, ul_s)
     if "--profile" in sys.argv[1:]:
-        phase_profile(chain, s, dispatch_ms)
-    for k in kernels:
-        k["launches"] = counts[k["name"]]
-    print(json.dumps({"kernels": kernels}))
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(99)
+        phase_profile("DL", lambda: chain.decode(s, SNR_DB, gen), dispatch_ms)
+        phase_profile("UL", lambda: ul.decode(ul_s, UL_SNR_DB, gen), ul_ms)
+    counts = {"dl_f32": counts_dl, "dl_bf16": counts_dl16, **counts_ul}
+    line = []
+    for name, k in kernels.items():
+        # per path: the launches of its one counted noisy dispatch, and the
+        # kernel's times and bound at the shape of that path's first launch;
+        # the top-level numbers are those of the UL path in the kernel's
+        # numerics (MAIN_PATH)
+        times = k.pop("_times")
+        by_path = {p: {"launches": counts[p][name], **times[PATHS[p]]} for p in KERNEL_PATHS[name]}
+        for p, v in by_path.items():
+            check(v["launches"] > 0, f"{name} was not launched on the {p} path")
+        line.append({"name": name, **k, "path": MAIN_PATH[name], **by_path[MAIN_PATH[name]],
+                     "by_path": by_path})
+    print(json.dumps({"kernels": line}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,24 +3,33 @@
 Replaces the Pallas kernel ``srslte_tpu/ops/tdec_pallas.py`` ``_siso_kernel``
 (reached through ``siso_from_windows``) together with the window-building
 glue around it (``prepare_windows``, ``prepare_windows_roll``,
-``prepare_beta_init``): `siso_windowed` computes what the kernel and the glue
-compute together, straight from the [B, K] LLR tensors.
+``prepare_beta_init``, ``take_windows``): `siso_windowed` computes what the
+kernel and the glue compute together, straight from the [B, K] LLR tensors.
+Both of that kernel's runs are here, chosen by the input dtype: float32, and
+the 16-bit run (``dtype=bfloat16``) that the JAX package takes on its
+accelerator, whose metrics are re-pinned to state 0 after every step.
 
-What bounds it on an H100: the function itself moves 3 float32 values per
-trellis position (two inputs, one output) and does about 85 adds and max per
-position, so its floor is set by bytes; the kernel in ``csrc/tdec_siso.cu``
-is far from that floor because each thread walks one window sequentially
-(T + L dependent steps) and spills both metric histories, 8 floats per step,
-to a scratch tensor in device memory.  What the design does about it: alpha
-and beta run in one merged loop (half the sequential depth, two independent
-dependency chains per thread), the histories are laid out
-[step][state][window] so that a warp's accesses coalesce, and the QPP
-interleave is folded into the input read (``perm``) instead of a separate
-pass.  Shared-memory histories and 16-bit metrics are later work.
+What bounds it on an H100: the function itself moves 3 values per trellis
+position (two inputs, one output; 4 bytes each in float32, 2 in bfloat16)
+and does about 85 adds and max per position (about 110 with the bfloat16
+re-pinning), so its floor is set by bytes; the kernel in
+``csrc/tdec_siso.cu`` is far from that floor because each thread walks one
+window sequentially (T + L dependent steps) and spills both metric
+histories, 8 metrics per step, to a scratch tensor in device memory.  What
+the design does about it: alpha and beta run in one merged loop (half the
+sequential depth, two independent dependency chains per thread), the
+histories are laid out [step][state][window] so that a warp's accesses
+coalesce, and the QPP interleave is folded into the input read (``perm``)
+instead of a separate pass.  The 16-bit kernel halves every byte the
+function and the histories move; it keeps one window per thread (the
+float32 kernel's code, templated on the metric type).  Shared-memory
+histories and two windows per thread in ``__nv_bfloat162`` are later work.
 
 `siso_windowed_plain` repeats the same arithmetic with PyTorch ops (a Python
-loop over the T + L steps on [8, N] tensors); it is what runs for a CPU
-tensor, and what the kernel is held against on the card.
+loop over the T + L steps on [8, N] tensors), in the input's dtype, one
+PyTorch op per kernel op: each bfloat16 op rounds once, as the kernel's
+intrinsics do, so the two agree exactly.  It is what runs for a CPU tensor,
+and what the kernel is held against on the card.
 """
 
 from __future__ import annotations
@@ -62,11 +71,14 @@ def siso_windowed_plain(sys_apr, par, beta_init, L: int, T: int,
     its code block: alpha trains on the T positions before the window (window
     0 starts exactly in state 0, through inactive halo steps), beta on the T
     positions after it (the last window starts from `beta_init`, the tail
-    termination).  State-major layout [8, N]; no per-step normalisation
-    (float32 headroom covers L + T steps).
+    termination).  State-major layout [8, N].  Metrics are in the inputs'
+    dtype: float32 runs without normalisation (its headroom covers L + T
+    steps); bfloat16 re-pins both metric vectors to state 0 after every step.
     """
     B, K = sys_apr.shape
-    dev = sys_apr.device
+    dev, dt = sys_apr.device, sys_apr.dtype
+    norm = dt == torch.bfloat16
+    neg = torch.tensor(NEG, dtype=torch.float32).to(dt).to(dev)
     W = -(-K // L)  # the last window may be partially inactive (K % L != 0)
     N = B * W
     pred, gidx, n0, p0, n1, g1i = (torch.as_tensor(t, device=dev)
@@ -79,7 +91,7 @@ def siso_windowed_plain(sys_apr, par, beta_init, L: int, T: int,
         idx = torch.as_tensor(np.clip(pos, 0, K - 1).astype(np.int64), device=dev)
         act = torch.as_tensor((pos >= 0) & (pos <= K - 1), device=dev)  # [W, LT]
         lt = pos.shape[-1]
-        zero = torch.zeros((), dtype=sys_apr.dtype, device=dev)
+        zero = torch.zeros((), dtype=dt, device=dev)
         sa = torch.where(act, sys_apr[:, idx], zero).reshape(N, lt).T  # [LT, N]
         pr = torch.where(act, par[:, idx], zero).reshape(N, lt).T
         live = act.expand(B, W, lt).reshape(N, lt).T
@@ -88,24 +100,27 @@ def siso_windowed_plain(sys_apr, par, beta_init, L: int, T: int,
     def gammas(sa, pr):
         return torch.stack([torch.zeros_like(sa), pr, sa, sa + pr])  # [4, N]
 
+    def pin(m):  # m[s] - m[0]: state 0 exactly 0
+        return m - m[0:1] if norm else m
+
     # --- alpha: positions wL-T .. wL+L-1 ------------------------------------
     sa_a, pr_a, live_a = window_inputs(w_starts[:, None] + np.arange(-T, L)[None, :])
-    a = torch.zeros((8, N), dtype=torch.float32, device=dev)
+    a = torch.zeros((8, N), dtype=dt, device=dev)
     first = (torch.arange(N, device=dev) % W) == 0  # window-0 lanes
-    a[1:, first] = NEG
-    alphas = torch.empty((T + L, 8, N), dtype=torch.float32, device=dev)
+    a[1:, first] = neg
+    alphas = torch.empty((T + L, 8, N), dtype=dt, device=dev)
     for t in range(T + L):
         alphas[t] = a  # alpha BEFORE this step
         g = gammas(sa_a[t], pr_a[t])
         new = torch.maximum(a[pred[:, 0]] + g[gidx[:, 0]], a[pred[:, 1]] + g[gidx[:, 1]])
-        a = torch.where(live_a[t], new, a)  # inactive: carry through
+        a = pin(torch.where(live_a[t], new, a))  # inactive: carry through
 
     # --- beta + llr: positions wL+L+T-1 down to wL ---------------------------
     sa_b, pr_b, live_b = window_inputs(w_starts[:, None] + np.arange(L + T)[None, :])
-    b0 = torch.zeros((B, W, 8), dtype=torch.float32, device=dev)
+    b0 = torch.zeros((B, W, 8), dtype=dt, device=dev)
     b0[:, W - 1] = beta_init
     b = b0.reshape(N, 8).T.contiguous()  # [8, N]; uniform 0 for training windows
-    llr_w = torch.empty((L, N), dtype=torch.float32, device=dev)
+    llr_w = torch.empty((L, N), dtype=dt, device=dev)
     for t in range(L + T - 1, -1, -1):
         g = gammas(sa_b[t], pr_b[t])
         r0 = b[n0] + g[p0]  # u=0: gamma = p*pr
@@ -115,7 +130,7 @@ def siso_windowed_plain(sys_apr, par, beta_init, L: int, T: int,
             m0 = torch.max(alpha_k + r0, dim=0).values
             m1 = torch.max(alpha_k + r1, dim=0).values
             llr_w[t] = (m1 - m0 - sa_b[t]) if emit_ext else (m1 - m0)
-        b = torch.where(live_b[t], torch.maximum(r0, r1), b)
+        b = pin(torch.where(live_b[t], torch.maximum(r0, r1), b))
     out = llr_w.reshape(L, B, W).permute(1, 2, 0).reshape(B, W * L)
     return out[:, :K].contiguous()
 
@@ -136,17 +151,19 @@ def _check(sys_apr, par, beta_init, L, T, perm):
             raise ValueError("all tensors must lie on one device")
         if not t.is_contiguous():
             raise ValueError("tensors must be contiguous")
-    for t in (sys_apr, par, beta_init):
-        if t.dtype != torch.float32:
-            raise TypeError(f"LLRs must be float32, got {t.dtype}")
+    if sys_apr.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"LLRs must be float32 or bfloat16, got {sys_apr.dtype}")
+    if par.dtype != sys_apr.dtype or beta_init.dtype != sys_apr.dtype:
+        raise TypeError(f"sys_apr, par and beta_init must share one dtype, got "
+                        f"{sys_apr.dtype}, {par.dtype}, {beta_init.dtype}")
     if perm is not None and (perm.dtype != torch.int32 or perm.shape != (K,)):
         raise TypeError(f"perm must be int32 [{K}], got {perm.dtype} {tuple(perm.shape)}")
 
 
-@functools.lru_cache(maxsize=1)
-def _lib():
+@functools.lru_cache(maxsize=None)
+def _lib(entry: str):
     lib = _build.load("tdec_siso")
-    fn = lib.siso_windowed_launch
+    fn = getattr(lib, entry)
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -159,28 +176,38 @@ def siso_windowed(sys_apr, par, beta_init, L: int, T: int,
     sys_apr [B, K]: systematic + a-priori LLR (positive => bit 1); par [B, K]:
     parity LLR; beta_init [B, 8]: beta after the last position, from the tail
     (`tdec._tail_beta`).  emit_ext returns llr - sys_apr (after `perm`).  perm
-    (int32 [K]) reads the systematic stream as sys_apr[:, perm].
+    (int32 [K]) reads the systematic stream as sys_apr[:, perm].  The three
+    LLR tensors are all float32 or all bfloat16; the result has their dtype.
 
     A CUDA tensor goes to the kernel; a CPU tensor to `siso_windowed_plain`.
+    Launches are counted per dtype: `siso_windowed.launches` (float32) and
+    `siso_windowed.launches_bf16`.
     """
     _check(sys_apr, par, beta_init, L, T, perm)
     if sys_apr.device.type == "cpu":
         return siso_windowed_plain(sys_apr, par, beta_init, L, T, emit_ext, perm)
     if sys_apr.device.type != "cuda":
         raise RuntimeError(f"no SISO kernel for device {sys_apr.device}")
+    bf16 = sys_apr.dtype == torch.bfloat16
     B, K = sys_apr.shape
     N = B * (-(-K // L))
     out = torch.empty_like(sys_apr)
-    scratch = torch.empty((T + L, 8, N), dtype=torch.float32, device=sys_apr.device)
+    scratch = torch.empty((T + L, 8, N), dtype=sys_apr.dtype, device=sys_apr.device)
     with torch.cuda.device(sys_apr.device):
-        err = _lib()(sys_apr.data_ptr(), par.data_ptr(), beta_init.data_ptr(),
-                     perm.data_ptr() if perm is not None else None,
-                     out.data_ptr(), scratch.data_ptr(), B, K, L, T,
-                     int(emit_ext), torch.cuda.current_stream().cuda_stream)
+        err = _lib("siso_windowed_bf16_launch" if bf16 else "siso_windowed_launch")(
+            sys_apr.data_ptr(), par.data_ptr(), beta_init.data_ptr(),
+            perm.data_ptr() if perm is not None else None,
+            out.data_ptr(), scratch.data_ptr(), B, K, L, T,
+            int(emit_ext), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"siso_windowed kernel launch failed: CUDA error {err}")
-    siso_windowed.launches += 1
+    if bf16:
+        siso_windowed.launches_bf16 += 1
+    else:
+        siso_windowed.launches += 1
     return out
 
 
-siso_windowed.launches = 0  # kernel launches made by this process
+# kernel launches made by this process, float32 and 16-bit
+siso_windowed.launches = 0
+siso_windowed.launches_bf16 = 0

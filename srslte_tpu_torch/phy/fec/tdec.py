@@ -14,7 +14,10 @@ constituent trellis through the 3 tail steps using the received tail LLRs.
 Inputs use the dcat layout produced by turbo.rm_rx: [d0 | d1 | d2], each
 stream K+4 long (data + re-arranged tails, 36.212 §5.1.3.2.2).
 
-All arithmetic is float32.
+The windowed decoder runs its SISO metrics in float32 (the default) or in
+bfloat16 (``siso_dtype=torch.bfloat16``, the numerics the JAX package runs on
+its accelerator): inputs scaled to mean |sys| 8 and clipped at +-32, metrics
+re-pinned to state 0 every step.  The short-block scans are float32 always.
 """
 
 from __future__ import annotations
@@ -152,15 +155,27 @@ def default_window(k: int) -> int | None:
 
 
 class TurboState(NamedTuple):
-    """Resumable turbo decoder state (float32, contiguous tensors)."""
+    """Resumable turbo decoder state (contiguous tensors).
 
-    sys: torch.Tensor  # [B, K] systematic LLR
-    par1: torch.Tensor  # [B, K] parity LLR of decoder 1 (iteration-invariant)
+    The SISO inputs and extrinsics are in the working dtype (float32 or
+    bfloat16), scaled by `sc`; on the float32 path sc is 1 and `sys_sat`
+    and `sys_d` are `sys` itself.
+    """
+
+    sys: torch.Tensor  # [B, K] float32 systematic LLR, unscaled
+    sys_sat: torch.Tensor  # [B, K] scaled, clipped: decoder 1's systematic input
+    sys_d: torch.Tensor  # [B, K] scaled, unclipped: decoder 2's systematic base
+    par1: torch.Tensor  # [B, K] parity LLR of decoder 1 (scaled, clipped)
     par2: torch.Tensor  # [B, K] parity LLR of decoder 2 (interleaved domain)
     b01: torch.Tensor  # [B, 8] tail-beta init of decoder 1
     b02: torch.Tensor  # [B, 8] tail-beta init of decoder 2
     e1: torch.Tensor  # [B, K] decoder-1 extrinsic (natural order)
     ext2: torch.Tensor  # [B, K] decoder-2 extrinsic (interleaved domain)
+    sc: torch.Tensor  # [] float32 fixed-point scale (1 on the float32 path)
+
+
+_BF16_TARGET = 8.0  # mean |sys| after scaling
+_BF16_CLIP = 32.0  # decoder-input saturation
 
 
 def state_supported(k: int, window: int | None = 0) -> bool:
@@ -190,19 +205,64 @@ def _perms(k: int, device):
     return pi, pi_inv, pi32
 
 
-def turbo_start(dcat_llr, k: int, L: int = 0, T: int = 32,
-                device=None) -> TurboState:
+def _sat(x):
+    """Clip at +-_BF16_CLIP on the 16-bit path; identity in float32."""
+    if x.dtype == torch.bfloat16:
+        return torch.clamp(x, -_BF16_CLIP, _BF16_CLIP)
+    return x
+
+
+def turbo_start(dcat_llr, k: int, L: int = 0, T: int = 32, device=None,
+                siso_dtype: torch.dtype = torch.float32) -> TurboState:
     """Prepare a resumable decoder state from dcat LLRs [B, 3*(K+4)].
 
-    L and T are taken for the JAX package's signature; the state holds no
+    siso_dtype float32 or bfloat16.  With bfloat16 the batch is scaled by sc
+    = 8 / mean|sys| over the WHOLE batch [B, K] (so one code block's result
+    depends on its batch, as in the JAX package); see `prepare_state`.  L
+    and T are taken for the JAX package's signature; the state holds no
     window tensors, so they change nothing here."""
     dcat_llr = as_tensor(dcat_llr, device, torch.float32)
-    sys, par1, par2, (t1x, t1z), (t2x, t2z) = _split_dcat(dcat_llr, k)
+    sys, par1, par2, t1, t2 = _split_dcat(dcat_llr, k)
+    if siso_dtype == torch.bfloat16:
+        sc = _BF16_TARGET / (torch.mean(torch.abs(sys)) + 1e-20)
+    else:
+        sc = torch.ones((), dtype=torch.float32, device=sys.device)
+    return prepare_state(sys, par1, par2, (t1, t2), sc, siso_dtype)
+
+
+def prepare_state(sys, par1, par2, tails, sc, siso_dtype: torch.dtype,
+                  sys_d=None) -> TurboState:
+    """A fresh state from the split float32 LLRs [B, K], the tails
+    ((t1x, t1z), (t2x, t2z)) [B, 3] and the scale sc (a float32 scalar).
+
+    float32: sc is 1 and nothing is scaled.  bfloat16: the scaled
+    systematic sys*sc is cast unclipped (`sys_d`, unless given) and, clipped
+    at +-32, is decoder 1's input; both parities are scaled, cast and
+    clipped (the reference clips in float32 before the cast: the same
+    values, since +-32 is a bfloat16 and rounding is monotonic), and the
+    tail-beta inits are computed in float32 from the scaled, unclipped
+    tails, then cast."""
+    (t1x, t1z), (t2x, t2z) = tails
     sys = sys.contiguous()
+    sc = torch.as_tensor(sc, dtype=torch.float32, device=sys.device)
+    if siso_dtype == torch.float32:
+        return TurboState(
+            sys=sys, sys_sat=sys, sys_d=sys, par1=par1.contiguous(),
+            par2=par2.contiguous(), b01=_tail_beta(t1x, t1z), b02=_tail_beta(t2x, t2z),
+            e1=torch.zeros_like(sys), ext2=torch.zeros_like(sys), sc=sc)
+    if siso_dtype != torch.bfloat16:
+        raise ValueError(f"siso_dtype must be float32 or bfloat16, got {siso_dtype}")
+    bf16 = torch.bfloat16
+    if sys_d is None:
+        sys_d = (sys * sc).to(bf16)
+    sys_d = sys_d.to(bf16).contiguous()
     return TurboState(
-        sys=sys, par1=par1.contiguous(), par2=par2.contiguous(),
-        b01=_tail_beta(t1x, t1z), b02=_tail_beta(t2x, t2z),
-        e1=torch.zeros_like(sys), ext2=torch.zeros_like(sys))
+        sys=sys, sys_sat=_sat(sys_d), sys_d=sys_d,
+        par1=_sat((par1 * sc).to(bf16)).contiguous(), par2=_sat((par2 * sc).to(bf16)).contiguous(),
+        b01=_tail_beta(t1x * sc, t1z * sc).to(bf16),
+        b02=_tail_beta(t2x * sc, t2z * sc).to(bf16),
+        e1=torch.zeros_like(sys, dtype=bf16), ext2=torch.zeros_like(sys, dtype=bf16),
+        sc=sc)
 
 
 def turbo_step(st: TurboState, k: int, n_iter: int, L: int = 0, T: int = 32,
@@ -212,37 +272,42 @@ def turbo_step(st: TurboState, k: int, n_iter: int, L: int = 0, T: int = 32,
     first=True skips the decoder-2-extrinsic gather of the very first
     sub-iteration (ext2 is identically zero in a fresh state).  Both SISOs
     emit extrinsics, and the QPP interleave ahead of the second one is folded
-    into the kernel's input read.
+    into the kernel's input read.  The working dtype is the state's; on the
+    16-bit path the two SISO inputs are bfloat16 adds followed by the clip,
+    decoder 2's taken in natural order and then permuted.
     """
     if L == 0:
         L = default_window(k) or 128
     pi, pi_inv, pi32 = _perms(k, st.sys.device)
     e1, ext2 = st.e1, st.ext2
     for it in range(n_iter):
-        sa1 = st.sys if (first and it == 0) else st.sys + ext2[:, pi_inv]
+        sa1 = st.sys_sat if (first and it == 0) else _sat(st.sys_sat + ext2[:, pi_inv])
         e1 = siso_windowed(sa1, st.par1, st.b01, L, T, emit_ext=True)
-        ext2 = siso_windowed(st.sys + e1, st.par2, st.b02, L, T, emit_ext=True,
+        ext2 = siso_windowed(_sat(st.sys_d + e1), st.par2, st.b02, L, T, emit_ext=True,
                              perm=pi32)
     return st._replace(e1=e1, ext2=ext2)
 
 
 def turbo_hard(st: TurboState, k: int):
-    """Posterior from state -> (hard bits [B, K] uint8, post f32, apr1 f32)."""
+    """Posterior from state -> (hard bits [B, K] uint8, post f32, apr1 f32).
+
+    The extrinsics are taken to float32 and unscaled by sc there."""
     _, pi_inv, _ = _perms(k, st.sys.device)
-    apr1 = st.ext2[..., pi_inv]
-    post = st.sys + st.e1 + apr1
+    apr1 = st.ext2[..., pi_inv].to(torch.float32) / st.sc
+    post = st.sys + st.e1.to(torch.float32) / st.sc + apr1
     return (post > 0).to(torch.uint8), post, apr1
 
 
 def turbo_take(st: TurboState, idx, k: int, L: int = 0,
                T: int = 32) -> TurboState:
     """Compact the state to the code-block subset idx (L and T as in
-    `turbo_start`)."""
-    return TurboState(*(t[idx].contiguous() for t in st))
+    `turbo_start`); the scale sc is kept."""
+    return TurboState(*(t if t.dim() == 0 else t[idx].contiguous() for t in st))
 
 
 def turbo_decode(dcat_llr, k: int, n_iter: int = 5, window: int | None = 0,
-                 apr0=None, return_state: bool = False, device=None):
+                 apr0=None, return_state: bool = False, device=None,
+                 siso_dtype: torch.dtype = torch.float32):
     """Decode a batch: dcat_llr [B, 3*(K+4)] -> (hard bits [B, K] uint8, llr [B, K]).
 
     dcat layout per turbo.turbo_encode_np.
@@ -254,6 +319,8 @@ def turbo_decode(dcat_llr, k: int, n_iter: int = 5, window: int | None = 0,
     =True` equals a single (n+m)-iteration decode (the C library's
     early-stopping decoder keeps iterating the same state, tdec run_all).
     return_state: also return the apr state for later resumption.
+    siso_dtype: the windowed path's working dtype (`turbo_start`); the
+    full-length scans are float32 always.
     """
     dcat_llr = as_tensor(dcat_llr, device, torch.float32)
     if window == 0:
@@ -263,9 +330,9 @@ def turbo_decode(dcat_llr, k: int, n_iter: int = 5, window: int | None = 0,
         apr0 = as_tensor(apr0, dcat_llr.device, torch.float32)
 
     if window:
-        st = turbo_start(dcat_llr, k, L=window, T=32)
+        st = turbo_start(dcat_llr, k, L=window, T=32, siso_dtype=siso_dtype)
         if apr0 is not None:
-            st = st._replace(ext2=apr0[..., pi].contiguous())
+            st = st._replace(ext2=(apr0 * st.sc)[..., pi].to(st.e1.dtype).contiguous())
         st = turbo_step(st, k, n_iter, L=window, T=32, first=apr0 is None)
         hard, post, apr1 = turbo_hard(st, k)
     else:

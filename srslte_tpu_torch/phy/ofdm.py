@@ -2,13 +2,15 @@
 
 Reference behavior: lib/src/phy/dft/ofdm.c (srsran_ofdm_tx_sf / rx_sf), incl.
 the RE<->FFT-bin mirror mapping (ofdm_tx_slot / ofdm_rx_slot), unnormalized
-FFTW convention with optional 1/sqrt(N) normalization and the DC carrier skip.
+FFTW convention with optional 1/sqrt(N) normalization, the DC carrier skip
+(dc=1 unless a fractional frequency shift is configured), and the
+per-symbol fractional frequency shift exp(j*2*pi*(t-cp)/N * f) used for the
+UL half-subcarrier offset (srsran_ofdm_set_freq_shift, ofdm.c:334-362).
 
 A subframe is one batched FFT of shape [..., nsymb_sf, N] (``torch.fft``) plus
 two static gathers: CP insert / strip are index maps built once per bucket.
 Everything vectorizes over arbitrary leading batch dims (subframes, carriers,
-antennas).  The per-symbol fractional frequency shift of the uplink
-(``freq_shift``) is not ported yet (ROADMAP queue A item 9).
+antennas).
 """
 
 from __future__ import annotations
@@ -30,24 +32,18 @@ class Ofdm:
     normalize=False matches the C library's DL convention (enb_dl.c:57,
     ue_dl.c:92): forward FFT and backward FFT are both unnormalized (FFTW),
     so a tx->rx round trip scales by N.  normalize=True applies 1/sqrt(N)
-    each way; `UeDl` and `EnbDl` use it.
+    each way; `UeDl`, `EnbDl`, `UeUl` and `EnbUl` use it.
     """
 
     params: OfdmParams
     normalize: bool = False
-    freq_shift: float = 0.0  # in units of subcarrier spacing; only 0.0 is ported
+    freq_shift: float = 0.0  # in units of subcarrier spacing (UL: +0.5 tx / -0.5 rx)
     keep_dc: bool = False
-
-    def __post_init__(self):
-        if self.freq_shift != 0.0:
-            raise NotImplementedError(
-                "Ofdm.freq_shift (UL half-subcarrier shift) is not ported yet "
-                "(ROADMAP queue A item 9: UL chain)")
 
     # -- static tables ------------------------------------------------------
     @property
     def dc(self) -> int:
-        return 0 if self.keep_dc else 1
+        return 0 if (self.keep_dc or self.freq_shift != 0.0) else 1
 
     @functools.cached_property
     def _cp_lens_sf(self) -> np.ndarray:
@@ -76,6 +72,27 @@ class Ofdm:
         return (starts[:, None] + np.arange(p.symbol_sz)[None, :]).astype(np.int32)
 
     @functools.cached_property
+    def _shift_buffer(self) -> np.ndarray | None:
+        """Per-sample fractional frequency shift (ofdm.c:347-356), phases in
+        float64 on the host, rounded once to complex64."""
+        if self.freq_shift == 0.0:
+            return None
+        p = self.params
+        buf = np.empty(p.sf_len, dtype=np.complex64)
+        pos = 0
+        for cp in self._cp_lens_sf:
+            n = p.symbol_sz
+            t = np.arange(cp + n, dtype=np.float64)
+            buf[pos : pos + cp + n] = np.exp(2j * np.pi * (t - cp) * self.freq_shift / n)
+            pos += cp + n
+        return buf
+
+    def _shift(self, device) -> torch.Tensor | None:
+        if self.freq_shift == 0.0:
+            return None
+        return table(("ofdm", self, "_shift_buffer"), device, lambda: self._shift_buffer)
+
+    @functools.cached_property
     def _re_to_bin(self) -> np.ndarray:
         """[nof_re] -> FFT bin index (mirror map, ofdm_tx_slot)."""
         p, dc = self.params, self.dc
@@ -101,12 +118,17 @@ class Ofdm:
         scale = float(np.sqrt(np.float32(n))) if self.normalize else float(n)
         sym = torch.fft.ifft(bins, dim=-1) * scale
         flat = sym.reshape(sym.shape[:-2] + (p.nsymb_sf * n,))
-        return flat[..., self._idx("_cp_insert_idx", grid.device)]
+        out = flat[..., self._idx("_cp_insert_idx", grid.device)]
+        shift = self._shift(grid.device)
+        return out if shift is None else out * shift
 
     def rx_sf(self, samples, device=None):
         """Time samples [..., sf_len] -> RE grid [..., nsymb_sf, nof_re]."""
         samples = as_tensor(samples, device).to(torch.complex64)
         n = self.params.symbol_sz
+        shift = self._shift(samples.device)
+        if shift is not None:
+            samples = samples * shift
         sym = samples[..., self._idx("_cp_strip_idx", samples.device)]
         bins = torch.fft.fft(sym, dim=-1)  # [..., nsymb_sf, N]
         if self.normalize:

@@ -160,7 +160,8 @@ def _derm_clusters(llr, cfg: DlschConfig):
 
 
 def dlsch_decode(llr, cfg: DlschConfig, n_iter: int = 5, early: int = 1,
-                 compact_frac: int = 8, device=None):
+                 compact_frac: int = 8, device=None,
+                 siso_dtype: torch.dtype = torch.float32):
     """llr [..., G] (positive => bit 1) -> (bits [..., tbs] uint8, crc_ok [...]).
 
     Early termination over a batch: the C library's turbo decoder stops
@@ -180,13 +181,17 @@ def dlsch_decode(llr, cfg: DlschConfig, n_iter: int = 5, early: int = 1,
     n_iter/compact_frac instead of n_iter.  Every branch gives the result of
     the same decoder; the branches differ only in which blocks they spend
     iterations on.
+
+    siso_dtype: the windowed turbo decoder's working dtype, float32 or
+    bfloat16 (`tdec.turbo_start`); all same-K code blocks of the batch share
+    one bfloat16 scale.
     """
     llr = as_tensor(llr, device, torch.float32)
     if cfg.rv != 0:
         raise NotImplementedError(
             "HARQ combining over rv > 0 is not ported yet (ROADMAP queue A item 9)")
     if not (early and early < n_iter):
-        return _dlsch_decode_fixed(llr, cfg, n_iter)
+        return _dlsch_decode_fixed(llr, cfg, n_iter, siso_dtype)
 
     seg = cfg.seg
     batch = llr.shape[:-1]
@@ -211,7 +216,8 @@ def dlsch_decode(llr, cfg: DlschConfig, n_iter: int = 5, early: int = 1,
         # through the phases; short ones thread the decoder-1 a-priori.
         if tdec.state_supported(K):
             def dec_init(n):
-                st = tdec.turbo_step(tdec.turbo_start(flat, K), K, n, first=True)
+                st = tdec.turbo_step(tdec.turbo_start(flat, K, siso_dtype=siso_dtype), K, n,
+                                     first=True)
                 return tdec.turbo_hard(st, K)[0], st
 
             def dec_more(st, n):
@@ -289,7 +295,7 @@ def dlsch_decode(llr, cfg: DlschConfig, n_iter: int = 5, early: int = 1,
     return b[..., : cfg.tbs].to(torch.uint8), tb_ok
 
 
-def _dlsch_decode_fixed(llr, cfg: DlschConfig, n_iter: int):
+def _dlsch_decode_fixed(llr, cfg: DlschConfig, n_iter: int, siso_dtype=torch.float32):
     """Fixed-iteration decode of the whole batch."""
     seg = cfg.seg
     batch = llr.shape[:-1]
@@ -301,7 +307,7 @@ def _dlsch_decode_fixed(llr, cfg: DlschConfig, n_iter: int):
         e = block.reshape(batch + (g.count, g.E))
         w = turbo.rm_rx(e, g.K, rv=cfg.rv, f=g.F)
         flat = w.reshape((-1, w.shape[-1]))
-        hard, _ = turbo_decode(flat, g.K, n_iter=n_iter)
+        hard, _ = turbo_decode(flat, g.K, n_iter=n_iter, siso_dtype=siso_dtype)
         hard = hard.reshape(batch + (g.count, g.K))
         if seg.C > 1:
             pb, po = crcmod.LTE_CRC24B

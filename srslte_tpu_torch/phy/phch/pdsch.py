@@ -163,11 +163,13 @@ class Pdsch:
         return flat.reshape(grids.shape)
 
     # -- UE side ------------------------------------------------------------
-    def decode(self, grid, ce, noise_var, n_iter: int = 5, device=None):
+    def decode(self, grid, ce, noise_var, n_iter: int = 5, device=None,
+               siso_dtype: torch.dtype = torch.float32):
         """grid [..., nsym, nre], ce [..., nports, nsym, nre] -> (bits, crc_ok).
 
         Equalizes (zero forcing, 1 port), demodulates with noise-scaled LLRs,
-        descrambles and runs DL-SCH decoding.
+        descrambles and runs DL-SCH decoding (`siso_dtype`: the turbo
+        decoder's working dtype, see `dlsch.dlsch_decode`).
         """
         grid = as_tensor(grid, device)
         ce = as_tensor(ce, grid.device)
@@ -187,4 +189,4 @@ class Pdsch:
         qm = self.grant.modulation.bits_per_symbol
         llr = llr * torch.repeat_interleave(w, qm, dim=-1)
         llr = scramble_llr(llr, self.cinit)
-        return dlsch_decode(llr, self.cfg, n_iter=n_iter)
+        return dlsch_decode(llr, self.cfg, n_iter=n_iter, siso_dtype=siso_dtype)

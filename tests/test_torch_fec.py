@@ -1,8 +1,9 @@
 """FEC parity: the port's coders and decoders against the JAX package, on the CPU.
 
-Every parity here is against the reference's **float32** path (the XLA scans
-it runs off-TPU, and its Pallas kernels in interpret mode in float32), never
-its bf16 TPU numerics.  Inputs are made with numpy from a seed and handed to
+Most parities here are against the reference's float32 path (the XLA scans
+it runs off-TPU, and its Pallas kernels in interpret mode in float32).  The
+16-bit SISO and the 16-bit resumable state are held against the reference's
+bfloat16 numerics, its Pallas kernel in interpret mode with bfloat16 metrics.  Inputs are made with numpy from a seed and handed to
 both packages.  Hard outputs (bits, CRC flags) must be equal exactly; float
 outputs to the tolerance stated at each test.
 """
@@ -143,6 +144,142 @@ def test_siso_plain_matches_pallas_interpreter(emit_ext):
     np.testing.assert_array_equal(got, ref)
 
 
+def bf16_siso_inputs(rng, B, k):
+    """Scaled and clipped decoder inputs as `tdec.turbo_start` makes them on
+    the 16-bit path (float32, values exact in bfloat16 after the cast), and
+    scaled float32 tails."""
+    _, llr = turbo_llrs(rng, B, k)
+    sc = np.float32(8.0) / np.abs(llr[:, :k]).mean(dtype=np.float32)
+    clip = lambda x: np.clip(x * sc, -32, 32).astype(np.float32)
+    tails = [(rng.standard_normal((B, 3)) * 8).astype(np.float32) for _ in range(2)]
+    return clip(llr[:, :k]), clip(llr[:, k + 4:2 * k + 4]), tails
+
+
+@pytest.mark.parametrize("emit_ext,use_perm", [(False, False), (True, True)])
+def test_siso_bf16_matches_pallas_interpreter(emit_ext, use_perm):
+    """The 16-bit SISO's plain version (what `siso_windowed` runs for a CPU
+    tensor, and what the CUDA kernel is held against on the card) against
+    the reference's Pallas kernel run with bfloat16 metrics in interpret
+    mode, at (K 40, L 8, T 4, B 3) with the cast tail-beta init of the last
+    window.  Found: the interpreter (XLA on the CPU) rounds every bfloat16
+    operation to bfloat16, as PyTorch does, so the two are equal exactly
+    (tolerance 0), posterior and extrinsic, with and without the QPP
+    permutation folded into the read."""
+    from srslte_tpu.ops.tdec_pallas import (prepare_beta_init, prepare_windows,
+                                            siso_from_windows)
+
+    k, B, L, T = 40, 3, 8, 4
+    rng = np.random.default_rng(17)
+    sys_, par, (tx, tz) = bf16_siso_inputs(rng, B, k)
+    pi = j_turbo.qpp_perm(k)
+    bf = jnp.bfloat16
+    sa_w = prepare_windows(jnp.asarray(sys_), k, L, T,
+                           perm=jnp.asarray(pi) if use_perm else None, dtype=bf)
+    pr_w = prepare_windows(jnp.asarray(par), k, L, T, dtype=bf)
+    b0 = prepare_beta_init(jnp.asarray(tx), jnp.asarray(tz), B, k, L, T, dtype=bf)
+    ref = np.asarray(siso_from_windows(sa_w, pr_w, b0, B, k, L, T,
+                                       emit_ext=emit_ext).astype(jnp.float32))
+    tb = lambda x: tt(x).to(torch.bfloat16)
+    before = tdec_cuda.siso_windowed.launches_bf16
+    got = tdec_cuda.siso_windowed(
+        tb(sys_), tb(par), t_tdec._tail_beta(tt(tx), tt(tz)).to(torch.bfloat16), L, T,
+        emit_ext=emit_ext, perm=tt(pi.astype(np.int32)) if use_perm else None)
+    assert got.dtype == torch.bfloat16
+    assert tdec_cuda.siso_windowed.launches_bf16 == before  # no kernel on a CPU tensor
+    np.testing.assert_array_equal(got.float().numpy(), ref)
+
+
+def test_bf16_resumable_state_matches_reference(monkeypatch):
+    """The 16-bit resumable state against the reference's (its bfloat16
+    numerics selected with SRSLTE_TPU_SISO_DTYPE=bf16, the Pallas kernel in
+    interpret mode) at (K 40, L 8, T 4, B 3): turbo_start, turbo_step (2
+    iterations, first=True), turbo_take and turbo_hard.  Found: the scale sc
+    is a float32 mean over the batch, summed in another order, and differs
+    by up to two float32 ulps (rtol 2.5e-7); the rounding to bfloat16
+    absorbs that, and every bfloat16 tensor (sys_d, e1, ext2) is equal
+    exactly (tolerance 0); the posterior, divided by sc in float32, agrees
+    to rtol 1e-6, and the hard bits are equal.  Then one JAX state, after 1
+    iteration, is carried across with `convert.turbo_state_from_numpy` (its
+    own sc) and one more iteration in the port equals the reference's second
+    exactly."""
+    monkeypatch.setenv("SRSLTE_TPU_SISO_DTYPE", "bf16")
+    k, B, L, T = 40, 3, 8, 4
+    rng = np.random.default_rng(23)
+    _, llr = turbo_llrs(rng, B, k, snr_db=0.5)
+    bf = torch.bfloat16
+    as_np = lambda x: np.asarray(jnp.asarray(x).astype(jnp.float32))
+
+    sj = j_tdec.turbo_start(jnp.asarray(llr), k, L=L, T=T)
+    assert sj.sys_d.dtype == jnp.bfloat16
+    st = t_tdec.turbo_start(llr, k, L=L, T=T, device=CPU, siso_dtype=bf)
+    np.testing.assert_allclose(st.sc.numpy(), as_np(sj.sc), rtol=2.5e-7)
+    np.testing.assert_array_equal(st.sys_d.float().numpy(), as_np(sj.sys_d))
+    assert st.sys_sat.dtype == st.par1.dtype == st.b01.dtype == bf
+
+    sj1 = j_tdec.turbo_step(sj, k, 1, L=L, T=T, first=True)
+    sj2 = j_tdec.turbo_step(sj1, k, 1, L=L, T=T)
+    st2 = t_tdec.turbo_step(st, k, 2, L=L, T=T, first=True)
+    for f in ("e1", "ext2"):
+        assert getattr(st2, f).dtype == bf
+        np.testing.assert_array_equal(getattr(st2, f).float().numpy(), as_np(getattr(sj2, f)))
+    hj, pj, aj = j_tdec.turbo_hard(sj2, k)
+    ht, pt, at = t_tdec.turbo_hard(st2, k)
+    np.testing.assert_allclose(pt.numpy(), np.asarray(pj), rtol=1e-6)
+    np.testing.assert_allclose(at.numpy(), np.asarray(aj), rtol=1e-6)
+    np.testing.assert_array_equal(ht.numpy(), np.asarray(hj))
+
+    idx = np.array([2, 0])
+    tj = j_tdec.turbo_take(sj2, jnp.asarray(idx), k, L=L, T=T)
+    tk = t_tdec.turbo_take(st2, torch.as_tensor(idx), k)
+    np.testing.assert_array_equal(tk.e1.float().numpy(), as_np(tj.e1))
+    np.testing.assert_array_equal(tk.sys_d.float().numpy(), as_np(tj.sys_d))
+    np.testing.assert_allclose(tk.sc.numpy(), as_np(tj.sc), rtol=2.5e-7)
+
+    sys_, par1, par2, t1, t2 = j_tdec._split_dcat(jnp.asarray(llr), k)
+    carried = convert.turbo_state_from_numpy(
+        as_np(sys_), as_np(par1), as_np(par2),
+        (tuple(map(as_np, t1)), tuple(map(as_np, t2))),
+        as_np(sj1.e1), as_np(sj1.ext2), as_np(sj1.sc), sys_d=as_np(sj1.sys_d),
+        siso_dtype=bf, device=CPU)
+    np.testing.assert_array_equal(carried.sc.numpy(), as_np(sj.sc))
+    for f in ("sys_sat", "sys_d", "par1", "par2", "b01", "b02"):
+        np.testing.assert_array_equal(getattr(carried, f).float().numpy(),
+                                      getattr(st, f).float().numpy())
+    c2 = t_tdec.turbo_step(carried, k, 1, L=L, T=T)
+    np.testing.assert_array_equal(c2.ext2.float().numpy(), as_np(sj2.ext2))
+    np.testing.assert_array_equal(t_tdec.turbo_hard(c2, k)[1].numpy(), np.asarray(pj))
+
+
+@pytest.mark.parametrize("k,snr_db", [(512, 8.0), (512, 1.5), (1056, 1.0)])
+def test_bf16_decoder_against_float32(k, snr_db):
+    """The 16-bit decoder at a windowed K on the CPU (the plain version with
+    bfloat16 metrics) against the port's own float32 decoder: the reference
+    has no CPU path that reaches its bfloat16 numerics at T 32, so this is
+    the port against itself.  `turbo_decode` and `dlsch_decode` (cascade,
+    one code block per TB): hard bits and CRC flags equal, on clean and on
+    moderately noisy inputs."""
+    rng = np.random.default_rng(k + int(snr_db))
+    bits, llr = turbo_llrs(rng, 4, k, snr_db=snr_db)
+    h32, _ = t_tdec.turbo_decode(llr, k, n_iter=4, device=CPU)
+    h16, p16 = t_tdec.turbo_decode(llr, k, n_iter=4, device=CPU, siso_dtype=torch.bfloat16)
+    np.testing.assert_array_equal(h16.numpy(), h32.numpy())
+    np.testing.assert_array_equal(h16.numpy(), bits)
+    assert p16.dtype == torch.float32
+
+    tbs = k - 24
+    cfg = t_dlsch.DlschConfig(tbs=tbs, G=3 * k, Qm=2)
+    tb = rng.integers(0, 2, (6, tbs)).astype(np.uint8)
+    coded = t_dlsch.dlsch_encode(tb, cfg, device=CPU).numpy().astype(np.float32)
+    sigma = 10 ** (-snr_db / 20)
+    y = (1 - 2 * coded) + sigma * rng.standard_normal(coded.shape)
+    dl = (-y * 2 / sigma**2).astype(np.float32)
+    b32, ok32 = t_dlsch.dlsch_decode(dl, cfg, device=CPU)
+    b16, ok16 = t_dlsch.dlsch_decode(dl, cfg, device=CPU, siso_dtype=torch.bfloat16)
+    np.testing.assert_array_equal(ok16.numpy(), ok32.numpy())
+    assert ok16.all()
+    np.testing.assert_array_equal(b16.numpy(), b32.numpy())
+
+
 def test_siso_wrapper_rejects_what_the_kernel_does_not_take():
     x = torch.zeros((2, 64))
     b0 = torch.zeros((2, 8))
@@ -154,6 +291,13 @@ def test_siso_wrapper_rejects_what_the_kernel_does_not_take():
         tdec_cuda.siso_windowed(x.T.contiguous().T, x, b0, 8, 4)  # not contiguous
     with pytest.raises(TypeError):
         tdec_cuda.siso_windowed(x, x, b0, 8, 4, perm=torch.arange(64))  # int64
+    with pytest.raises(TypeError):  # mixed float32 and bfloat16
+        tdec_cuda.siso_windowed(x.bfloat16(), x, b0, 8, 4)
+    with pytest.raises(TypeError):
+        tdec_cuda.siso_windowed(x.bfloat16(), x.bfloat16(), b0, 8, 4)
+    with pytest.raises(ValueError):
+        t_tdec.turbo_start(np.zeros((2, 3 * 260), np.float32), 256, device=CPU,
+                           siso_dtype=torch.float16)
     with pytest.raises(ValueError):
         viterbi_cuda.viterbi_decode(torch.zeros((2, 100)), 44)
     with pytest.raises(TypeError):
