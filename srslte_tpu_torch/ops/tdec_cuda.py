@@ -9,21 +9,35 @@ Both of that kernel's runs are here, chosen by the input dtype: float32, and
 the 16-bit run (``dtype=bfloat16``) that the JAX package takes on its
 accelerator, whose metrics are re-pinned to state 0 after every step.
 
-What bounds it on an H100: the function itself moves 3 values per trellis
-position (two inputs, one output; 4 bytes each in float32, 2 in bfloat16)
-and does about 85 adds and max per position (about 110 with the bfloat16
-re-pinning), so its floor is set by bytes; the kernel in
-``csrc/tdec_siso.cu`` is far from that floor because each thread walks one
-window sequentially (T + L dependent steps) and spills both metric
-histories, 8 metrics per step, to a scratch tensor in device memory.  What
-the design does about it: alpha and beta run in one merged loop (half the
-sequential depth, two independent dependency chains per thread), the
-histories are laid out [step][state][window] so that a warp's accesses
-coalesce, and the QPP interleave is folded into the input read (``perm``)
-instead of a separate pass.  The 16-bit kernel halves every byte the
-function and the histories move; it keeps one window per thread (the
-float32 kernel's code, templated on the metric type).  Shared-memory
-histories and two windows per thread in ``__nv_bfloat162`` are later work.
+What bounds it on an H100: the function moves 3 values per trellis position
+(two inputs, one output; 4 bytes each in float32, 2 in bfloat16) and does
+about 85 adds and max per position (about 110 with the bfloat16
+re-pinning), so its floor is set by bytes.  What stands between a kernel and
+that floor is the T + L dependent steps of every window and the room on chip
+for the windows in flight.  The design of ``csrc/tdec_siso.cu``: one lane
+per trellis state, a group of 8 lanes per window (float32) or per pair of
+windows packed in ``__nv_bfloat162`` (16 bits), the metrics exchanged by
+warp shuffles; alpha and beta in one merged loop; both metric histories in
+shared memory, only the L x 8 metrics that are read back; the inputs loaded
+two chunks of 8 steps ahead into a ring of gammas in shared memory, the QPP
+interleave (``perm``) gathered once per position; the LLRs of 8 steps
+finished together by a transposed reduction over the group.  Nothing but
+the inputs and the output goes through device memory.  `siso_plan`
+computes the launch geometry (groups, blocks, dynamic shared bytes, the
+pairing of 16-bit windows) and refuses a shape whose history does not fit
+in a block's shared memory.
+
+Measured with ``chip_smoke.py`` and ``ops/siso_variants.py`` on an NVIDIA
+H100 80GB HBM3 at 700 W, at L 256, T 32: 96 registers per thread in float32
+without ``perm`` and 118-120 with it, 120-124 in 16 bits, no spill; 37,888
+shared bytes per block of 32 threads, 6 resident blocks, so 24 windows per
+SM in float32 and 48 in 16 bits.  At the DL path's shape (B 1408, K 5824)
+the float32 kernel takes 0.263 ms (11 % of its byte bound) and the 16-bit
+one 0.203 ms (7 %), the mean of a launch with ``perm`` and one without.
+Padding a block's shared memory so that only 3 blocks are resident makes it
+1.5-1.6 times slower, but a variant with twice the windows in flight and
+recomputed histories was slower still: at 6 blocks it is near the
+throughput of its shuffles and shared-memory accesses per window step.
 
 `siso_windowed_plain` repeats the same arithmetic with PyTorch ops (a Python
 loop over the T + L steps on [8, N] tensors), in the input's dtype, one
@@ -36,6 +50,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -43,6 +58,12 @@ import torch
 from . import _build
 
 NEG = -1e9
+
+LANES_PER_GROUP = 8  # one lane per trellis state
+GROUPS_PER_BLOCK = 4  # one warp per block
+SMEM_PER_BLOCK = 232448  # shared memory one block may use on sm_90 (MAX_SMEM in the source)
+METRIC_WORD = 4  # bytes of a lane's metric word: one float32, or a bfloat16 pair
+RING_WORDS = 2 * LANES_PER_GROUP * 4  # input ring per group: 2 sides x 8 steps x 2 gamma pairs
 
 
 @functools.lru_cache(maxsize=1)
@@ -160,11 +181,50 @@ def _check(sys_apr, par, beta_init, L, T, perm):
         raise TypeError(f"perm must be int32 [{K}], got {perm.dtype} {tuple(perm.shape)}")
 
 
+class SisoPlan(NamedTuple):
+    """Launch geometry of the SISO kernel for one shape."""
+
+    windows: int  # B * W windows of L positions
+    windows_per_group: int  # 1 in float32; 2 in 16 bits, one __nv_bfloat162 pair
+    groups: int  # groups of LANES_PER_GROUP lanes, one per trellis state
+    blocks: int  # of GROUPS_PER_BLOCK groups
+    threads: int  # per block
+    smem_bytes: int  # dynamic shared memory per block: histories, systematic buffer, gamma ring
+
+
+def siso_plan(B: int, K: int, L: int, T: int, bf16: bool) -> SisoPlan:
+    """The kernel's launch geometry for [B, K] inputs and windows of L with
+    T-step halos; raises ValueError for a shape that does not fit.
+
+    Group g of block x holds the windows (x * GROUPS_PER_BLOCK + g) * wpg + h,
+    h < wpg, of the B * W windows numbered b * W + w: in 16 bits, windows 2m
+    and 2m + 1 share a lane's __nv_bfloat162 (a pair may span two code
+    blocks), and an odd count leaves the last pair's high half a dummy.  The
+    blocks are as few as cover every window, which the kernel's launch
+    checks.  Shared memory per group, in metric words: the history, L steps
+    of 8; the systematic values of the L window positions; the input ring,
+    8 steps of 2 gamma pairs for each side.  The launch refuses a plan whose
+    shared bytes are not exactly what the kernel's layout uses."""
+    W = -(-K // L)
+    N = B * W
+    wpg = 2 if bf16 else 1
+    groups = -(-N // wpg)
+    blocks = -(-groups // GROUPS_PER_BLOCK)
+    smem = GROUPS_PER_BLOCK * (L * (LANES_PER_GROUP + 1) + RING_WORDS) * METRIC_WORD
+    if smem > SMEM_PER_BLOCK:
+        raise ValueError(f"window L={L}, T={T} needs {smem} bytes of shared memory per block, "
+                         f"more than the {SMEM_PER_BLOCK} a block may use")
+    return SisoPlan(N, wpg, groups, blocks, GROUPS_PER_BLOCK * LANES_PER_GROUP, smem)
+
+
 @functools.lru_cache(maxsize=None)
 def _lib(entry: str):
-    lib = _build.load("tdec_siso")
+    return _entry(_build.load("tdec_siso"), entry)
+
+
+def _entry(lib: ctypes.CDLL, entry: str):
     fn = getattr(lib, entry)
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -179,9 +239,10 @@ def siso_windowed(sys_apr, par, beta_init, L: int, T: int,
     (int32 [K]) reads the systematic stream as sys_apr[:, perm].  The three
     LLR tensors are all float32 or all bfloat16; the result has their dtype.
 
-    A CUDA tensor goes to the kernel; a CPU tensor to `siso_windowed_plain`.
-    Launches are counted per dtype: `siso_windowed.launches` (float32) and
-    `siso_windowed.launches_bf16`.
+    A CUDA tensor goes to the kernel, under `siso_plan`'s geometry (which
+    refuses a window too long for a block's shared memory); a CPU tensor to
+    `siso_windowed_plain`.  Launches are counted per dtype:
+    `siso_windowed.launches` (float32) and `siso_windowed.launches_bf16`.
     """
     _check(sys_apr, par, beta_init, L, T, perm)
     if sys_apr.device.type == "cpu":
@@ -189,23 +250,43 @@ def siso_windowed(sys_apr, par, beta_init, L: int, T: int,
     if sys_apr.device.type != "cuda":
         raise RuntimeError(f"no SISO kernel for device {sys_apr.device}")
     bf16 = sys_apr.dtype == torch.bfloat16
-    B, K = sys_apr.shape
-    N = B * (-(-K // L))
-    out = torch.empty_like(sys_apr)
-    scratch = torch.empty((T + L, 8, N), dtype=sys_apr.dtype, device=sys_apr.device)
-    with torch.cuda.device(sys_apr.device):
-        err = _lib("siso_windowed_bf16_launch" if bf16 else "siso_windowed_launch")(
-            sys_apr.data_ptr(), par.data_ptr(), beta_init.data_ptr(),
-            perm.data_ptr() if perm is not None else None,
-            out.data_ptr(), scratch.data_ptr(), B, K, L, T,
-            int(emit_ext), torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"siso_windowed kernel launch failed: CUDA error {err}")
+    plan = siso_plan(*sys_apr.shape, L, T, bf16)
+    out = _launch(_lib("siso_windowed_bf16_launch" if bf16 else "siso_windowed_launch"),
+                  sys_apr, par, beta_init, L, T, emit_ext, perm, plan.blocks, plan.smem_bytes)
     if bf16:
         siso_windowed.launches_bf16 += 1
     else:
         siso_windowed.launches += 1
     return out
+
+
+def _launch(fn, sys_apr, par, beta_init, L, T, emit_ext, perm, blocks, smem):
+    """One launch of the kernel entry `fn` on checked CUDA tensors."""
+    B, K = sys_apr.shape
+    out = torch.empty_like(sys_apr)
+    with torch.cuda.device(sys_apr.device):
+        err = fn(sys_apr.data_ptr(), par.data_ptr(), beta_init.data_ptr(),
+                 perm.data_ptr() if perm is not None else None, out.data_ptr(),
+                 B, K, L, T, blocks, smem, int(emit_ext), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"siso_windowed kernel launch failed: CUDA error {err}")
+    return out
+
+
+def blocks_per_sm(plan: SisoPlan, emit_ext: bool = True, perm: bool = False,
+                  lib: ctypes.CDLL | None = None) -> int:
+    """Resident blocks per SM of the kernel (of `lib`, by default the built
+    source) under `plan`, as the CUDA runtime computes it on the current
+    device (a measurement aid; launches nothing)."""
+    fn = (lib or _build.load("tdec_siso")).siso_windowed_blocks_per_sm
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    result = ctypes.c_int(0)
+    err = fn(int(plan.windows_per_group == 2), int(emit_ext), int(perm), plan.smem_bytes,
+             ctypes.byref(result))
+    if err != 0:
+        raise RuntimeError(f"occupancy query failed: CUDA error {err}")
+    return result.value
 
 
 # kernel launches made by this process, float32 and 16-bit

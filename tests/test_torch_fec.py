@@ -295,6 +295,12 @@ def test_siso_wrapper_rejects_what_the_kernel_does_not_take():
         tdec_cuda.siso_windowed(x.bfloat16(), x, b0, 8, 4)
     with pytest.raises(TypeError):
         tdec_cuda.siso_windowed(x.bfloat16(), x.bfloat16(), b0, 8, 4)
+    # a window whose history does not fit in a block's shared memory: the
+    # launch plan, which the wrapper makes for a CUDA tensor, refuses it
+    with pytest.raises(ValueError):
+        tdec_cuda.siso_plan(2, 40, 2048, 4, False)
+    with pytest.raises(ValueError):
+        tdec_cuda.siso_plan(2, 40, 2048, 4, True)
     with pytest.raises(ValueError):
         t_tdec.turbo_start(np.zeros((2, 3 * 260), np.float32), 256, device=CPU,
                            siso_dtype=torch.float16)
