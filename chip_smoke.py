@@ -86,10 +86,18 @@ def check(cond, msg):
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
+HEAD_START_CYCLES = 2_000_000  # about 1 ms of the card's clock
+
+
 def event_ms(fn, n):
-    """Mean device time of fn() over n calls, by CUDA events."""
+    """Mean device time of fn() over n calls, by CUDA events.  The card is
+    first kept busy for about 1 ms, so that the host has queued the calls
+    before the start event runs: a kernel shorter than its wrapper's host
+    time is timed on the device, not at the rate the host issues it."""
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    fn()  # warm-up (first-call set-up)
     torch.cuda.synchronize()
+    torch.cuda._sleep(HEAD_START_CYCLES)
     start.record()
     for _ in range(n):
         fn()
@@ -214,7 +222,7 @@ def time_siso(name, sys_, par, b0, pi, L, T):
 
 def time_viterbi(llr, length):
     """CUDA-event times of one tail-biting Viterbi launch, its plain
-    version's, and its bound."""
+    version's, its bound and its launch geometry."""
     from srslte_tpu_torch.ops import viterbi_cuda
 
     nc = llr.shape[0]
@@ -226,12 +234,31 @@ def time_viterbi(llr, length):
     # integer operations per step
     b_ms, b_by, by, op = bound(nc * 3 * length * 4 + nc * length,
                                nc * 3 * length * (10 + 64 * 4 + 3))
+    plan = viterbi_cuda.viterbi_plan(nc, length, True)
+    per_sm = viterbi_cuda.blocks_per_sm(plan) * plan.candidates_per_block
     shape = f"B={nc} len={length} tail-biting"
     print(f"[3 kernels] viterbi_decode {shape}: {ms:.4f} ms, plain version {plain_ms:.1f} ms, "
-          f"bound {b_ms:.4f} ms by {b_by} ({by:.4f} ms bytes, {op:.4f} ms operations), "
-          f"{100 * b_ms / ms:.2f} % of the bound", flush=True)
+          f"bound {b_ms:.6f} ms by {b_by} ({by:.6f} ms bytes, {op:.6f} ms operations), "
+          f"{100 * b_ms / ms:.2f} % of the bound; {plan.blocks} blocks of {plan.threads} threads, "
+          f"{plan.smem_bytes} shared bytes per block, {per_sm} candidates per SM resident, "
+          f"{nc / torch.cuda.get_device_properties(0).multi_processor_count:.2f} per SM "
+          f"launched", flush=True)
     return {"shape": shape, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "share_of_bound": b_ms / ms}
+            "share_of_bound": b_ms / ms, "smem_bytes": plan.smem_bytes,
+            "candidates_per_sm": per_sm}
+
+
+def viterbi_chain_ns(length):
+    """ns per trellis step of one tail-biting candidate alone (B = 1): the
+    latency of the kernel's step chain, launch and traceback included."""
+    from srslte_tpu_torch.ops import viterbi_cuda
+
+    llr = torch.randn((1, 3 * length), device="cuda")
+    ms = event_ms(lambda: viterbi_cuda.viterbi_decode(llr, length, True), 20)
+    ns = ms * 1e6 / (3 * length)
+    print(f"[3 kernels] viterbi_decode B=1 len={length} tail-biting: {ms:.4f} ms, "
+          f"{ns:.1f} ns per trellis step ({3 * length} steps)", flush=True)
+    return ns
 
 
 def phase_kernels():
@@ -303,23 +330,36 @@ def phase_kernels():
         del st
 
     # --- Viterbi ---------------------------------------------------------
-    # the DL's two DCI lengths with and without tail-biting, and the UL's
-    # long CQI as the path runs it (tail-biting)
+    # The DL's two DCI lengths with and without tail-biting, and the UL's
+    # long CQI as the path runs it (tail-biting); then the edges: one
+    # candidate, a ragged B, the one-bit code, one block exactly full of
+    # candidates (PBCH's 40 bits), NB-IoT NPDSCH's longest (704 bits) and the
+    # longest the kernel takes (its shared memory per block nearly full).
+    # Codes shorter than the encoder's 6-bit memory get random LLRs.
     vit_err, vit_t = 0, {}
     vit_path = {v: k for k, v in VIT_SHAPES.items()}
-    for nc, length, tb_settings in ((BATCH * 18, 44, (True, False)),
-                                    (BATCH * 18, 27, (True, False)),
-                                    (*VIT_SHAPES["ul"], (True,))):
+    both = (True, False)
+    for nc, length, tb_settings in ((BATCH * 18, 44, both), (BATCH * 18, 27, both),
+                                    (*VIT_SHAPES["ul"], (True,)), (1, 44, both), (77, 44, both),
+                                    (3, 1, both), (viterbi_cuda.CANDIDATES_PER_BLOCK, 40, (True,)),
+                                    (4, 704, both), (2, viterbi_cuda.max_length(True), (True,)),
+                                    (2, viterbi_cuda.max_length(False), (False,))):
         bits = rng.integers(0, 2, (nc, length)).astype(np.uint8)
-        coded = convolutional.conv_encode(bits, length).to(torch.float32)
+        # encoded on the host: the card keeps no generator matrix of these lengths
+        coded = (torch.as_tensor(convolutional.conv_encode_np(bits), dtype=torch.float32,
+                                 device=dev) if length >= 6 else None)
         for tail_biting in tb_settings:
             # clean, noisy, and clean with the last 8 steps erased (LLR 0): there
             # every end state ties, which is what tells the first maximum from
             # another, and every decision of those steps is a tie
             for kind, sigma in (("clean", 0.0), ("noisy", 0.8), ("erased tail", 0.0)):
-                noise = torch.as_tensor(rng.standard_normal(coded.shape, dtype=np.float32),
+                noise = torch.as_tensor(rng.standard_normal((nc, 3 * length), dtype=np.float32),
                                         device=dev)
-                llr = (-(1 - 2 * coded) + sigma * noise).contiguous()
+                if coded is None:
+                    kind = "random" if kind != "erased tail" else kind
+                    llr = noise.contiguous()
+                else:
+                    llr = (-(1 - 2 * coded) + sigma * noise).contiguous()
                 if kind == "erased tail":
                     llr[:, -24:] = 0.0
                 got = viterbi_cuda.viterbi_decode(llr, length, tail_biting)
@@ -328,7 +368,7 @@ def phase_kernels():
                 nbad = int((got != ref).sum())
                 check(nbad == 0, f"Viterbi B={nc} len={length} tail_biting={tail_biting} {kind}: "
                                  f"{nbad} bits differ from the plain version")
-                if tail_biting and kind != "erased tail":
+                if tail_biting and kind in ("clean", "noisy"):
                     ber = float((got.cpu().numpy() != bits).mean())
                     check(ber < (1e-9 if kind == "clean" else 1e-2),
                           f"Viterbi B={nc} len={length} {kind}: BER {ber}")
@@ -338,6 +378,7 @@ def phase_kernels():
                 key = vit_path.get((nc, length))
                 if key is not None and tail_biting and kind == "noisy":
                     vit_t[key] = time_viterbi(llr, length)
+    chain_ns = {f"len{n}": viterbi_chain_ns(n) for n in (44, 704)}
 
     common = {"route": "cuda", "source": "srslte_tpu_torch/csrc/tdec_siso.cu",
               "replaces": "srslte_tpu/ops/tdec_pallas.py:98", "library_ms": None}
@@ -345,7 +386,8 @@ def phase_kernels():
             "siso_windowed_bf16": {**common, "max_abs_err": bf_err, "_times": bf_t},
             "viterbi_decode": {**common, "source": "srslte_tpu_torch/csrc/viterbi.cu",
                                "replaces": "srslte_tpu/ops/viterbi_pallas.py:58",
-                               "max_abs_err": float(vit_err), "_times": vit_t}}
+                               "max_abs_err": float(vit_err), "b1_ns_per_step": chain_ns,
+                               "_times": vit_t}}
 
 
 class Chain:
@@ -709,6 +751,9 @@ def phase_profile(label, run, dispatch_ms):
     siso_us = sum(us for us, _, key in rows if "siso_kernel" in key)
     print(f"[profile {label}] SISO kernels {siso_us / 1e3:.3f} ms = {100 * siso_us / busy_us:.1f} % "
           f"of the busy time")
+    vit = [(us, count) for us, count, key in rows if "viterbi_kernel" in key]
+    print(f"[profile {label}] Viterbi kernel {sum(us for us, _ in vit) / 1e3:.4f} ms in "
+          f"{sum(count for _, count in vit)} launches")
     for us, count, key in rows[:14]:
         print(f"[profile {label}]   {us / 1e3:8.3f} ms  {count:5d} x  {key[:90]}")
     sys.stdout.flush()

@@ -120,18 +120,19 @@ def variant_source(src: str, replacements) -> str:
     return src
 
 
-def build_variants(variants) -> dict:
-    """{name: (library, registers per kernel instance)}, built in parallel."""
+def build_variants(variants, source: str = "tdec_siso") -> dict:
+    """{name: (library, registers per kernel instance)} of the variants
+    {name: (replacements, ...)} of csrc/<source>.cu, built in parallel."""
     import ctypes
 
     out_dir = _build.BUILD / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
-    src = (_build.CSRC / "tdec_siso.cu").read_text()
+    src = (_build.CSRC / f"{source}.cu").read_text()
     nvcc, procs = _build._nvcc(), {}
     for name, (reps, _) in variants.items():
-        cu = out_dir / f"{name}.cu"
+        cu = out_dir / f"{source}_{name}.cu"
         cu.write_text(variant_source(src, reps))
-        so = out_dir / f"lib{name}.so"
+        so = out_dir / f"lib{source}_{name}.so"
         procs[name] = (subprocess.Popen([nvcc, *_build.NVCC_FLAGS, "-o", str(so), str(cu)],
                                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                         text=True), so)
