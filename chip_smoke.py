@@ -20,18 +20,31 @@ memory of one dispatch per path:
   (SC-FDMA, channel estimate, MMSE, DFT de-precoding, UCI demux with the
   long CQI through the Viterbi kernel, UL-SCH turbo cascade); 100 PRB,
   PUSCH on PRBs 2-97 at mcs 28 (64QAM), subframe 2, RNTI 0x46, 1-bit ACK and
-  a 30-bit CQI, clean and at 18 dB, with the SISO in float32 and in 16 bits.
+  a 30-bit CQI, clean and at 18 dB, with the SISO in float32 and in 16 bits;
+- the device Gold sequence against the host one;
+- the turbo BLER gates of tests/test_bler_gates.py on the card, in float32
+  (checks) and in 16 bits (printed);
+- DL HARQ on the 20 MHz deployment above: each TB sent at rv 0, then only the
+  TBs still failing again at rv 2, 3, 1 (DlGrant.full(100, 27, rv)), AWGN ->
+  UeDl.fft_estimate -> Pdsch.soft_bits -> mac.harq.combine_llr into each
+  TB's soft buffer -> mac.harq.decode_state;
+- the eNB's UL control at 100 PRB: PUCCH (six format 1a ACKs at
+  N1 + ncce, an empty 1a resource, a positive SR on format 1, a format 2b
+  with a wideband CQI and 2 ACK bits, a format 3 with 10 ACK bits) from the
+  port's UeUl through EnbUl.decode_pucch; SRS over 96 PRB (Srs.estimate);
+  PRACH format 0 detection (prach_detect) with delays, and on noise alone.
 
 Exits non-zero on any failure, and when there is no CUDA device.  The line
 before the last is the card's name and power limit; the last line is
 `{"ok": true, "device": {...}}`.
 
-`python3 chip_smoke.py --profile` adds one DL and one UL dispatch under
-`torch.profiler` and prints the device's busy share and the kernels that
-take most of its time.
+`python3 chip_smoke.py --profile` adds one DL and one UL dispatch, one HARQ
+round and one UL-control dispatch under `torch.profiler` and prints the
+device's busy share and the kernels that take most of its time.
 """
 
 import contextlib
+import itertools
 import json
 import math
 import re
@@ -72,13 +85,44 @@ SISO_SHAPES = {"dl": (BATCH * 11, 5824, 256, 32),  # 11 code blocks of K 5824 pe
 VIT_SHAPES = {"dl": (BATCH * 18, 44),  # 18 PDCCH candidates, DCI 1A + CRC16
               "ul": (BATCH, 38)}  # one long CQI per subframe: 30 bits + CRC8, tail-biting
 # The paths of the `kernels` line: (numerics, shape key); each kernel's
-# top-level numbers are those of the UL path in its numerics.
-PATHS = {"dl_f32": "dl", "dl_bf16": "dl", "ul_f32": "ul", "ul_bf16": "ul"}
-KERNEL_PATHS = {"siso_windowed": ("dl_f32", "ul_f32"),
+# top-level numbers are those of the UL path in its numerics.  The DL HARQ
+# path's first launch is the DL shape (every code block of rv 0).
+PATHS = {"dl_f32": "dl", "dl_bf16": "dl", "ul_f32": "ul", "ul_bf16": "ul", "dl_harq": "dl"}
+KERNEL_PATHS = {"siso_windowed": ("dl_f32", "ul_f32", "dl_harq"),
                 "siso_windowed_bf16": ("dl_bf16", "ul_bf16"),
                 "viterbi_decode": ("dl_f32", "dl_bf16", "ul_f32", "ul_bf16")}
 MAIN_PATH = {"siso_windowed": "ul_f32", "siso_windowed_bf16": "ul_bf16",
              "viterbi_decode": "ul_f32"}
+
+
+# DL HARQ (phase 10): the DL deployment above at an SNR where rv 0 alone
+# decodes about half of the TBs (63 of 128 on an H100), so that the
+# retransmissions have work to do
+HARQ_SNR_DB = 14.7
+HARQ_SEED = 41
+# the round-2 (rv 2) batch of SISO code blocks that HARQ_SNR_DB and HARQ_SEED
+# give: 11 code blocks for each of the 65 TBs still failing after rv 0;
+# phase 3 holds the kernel at this shape, phase 10 again at the round's own
+# if it differs
+HARQ_RAGGED = (11 * 65, 5824, 256, 32)
+
+# the turbo BLER gates of tests/test_bler_gates.py: (K, Eb/N0 dB, trials,
+# seed, block errors required: "none" or "some")
+GATES = ((6144, 1.5, 100, 6144, "none"), (504, 2.0, 100, 504, "none"),
+         (1024, -2.0, 20, 1, "some"))
+
+# eNB UL control (phase 11): 100 PRB, cell id 1, FDD, normal CP, subframe 2
+N1_PUCCH_AN = 12  # Sib2.n1_pucch_an: format 1a ACK at N1 + ncce
+ACK_NCCE = (0, 4, 8, 12, 16, 20)  # six UEs' first CCE
+DTX_NCCE = 24  # a seventh ACK resource on which nothing is sent
+ACK_DET_THRESH = 0.25  # a 1a metric below this reads as DTX at the eNB
+N_RB_2 = 1  # PRB pairs of the format 2 region
+N_PUCCH_2 = 5  # format 2b: m = 0
+N_PUCCH_3 = 15  # format 3: m = 3
+PUCCH_SNR_DB = 3.0  # per occupied RE, one UE's RE at unit power
+SRS_SNR_DB = 10.0
+PRACH_SNR_DB = -10.0  # per sample, the preamble at unit power
+PRACH_MAX_DELAY = 1080  # samples, inside the N_cs window (38 lags = 1113)
 
 
 def check(cond, msg):
@@ -261,6 +305,38 @@ def viterbi_chain_ns(length):
     return ns
 
 
+def ext_perm_variants(pi):
+    """The four (emit_ext, perm) variants of a SISO launch."""
+    return ((False, None), (True, None), (False, pi), (True, pi))
+
+
+def check_siso(rng, B, K, L, T):
+    """The float32 SISO against its plain version by value (max abs
+    difference 0; -0.0 and 0.0 count as equal) in all four emit_ext / perm
+    variants, on realistic inputs; returns (largest difference, the inputs
+    (sys, par, beta_init, perm))."""
+    from srslte_tpu_torch.ops import tdec_cuda
+    from srslte_tpu_torch.phy.fec import turbo
+
+    sys_, par, b0 = turbo_siso_inputs(rng, B, K)
+    pi = torch.as_tensor(turbo.qpp_perm(K).astype(np.int32), device="cuda")
+    worst = 0.0
+    for emit_ext, perm in ext_perm_variants(pi):
+        got = tdec_cuda.siso_windowed(sys_, par, b0, L, T, emit_ext=emit_ext, perm=perm)
+        ref = tdec_cuda.siso_windowed_plain(sys_, par, b0, L, T, emit_ext=emit_ext, perm=perm)
+        torch.cuda.synchronize()
+        check(got.dtype == F32 and bool(torch.isfinite(got).all()),
+              f"SISO K={K}: type or non-finite output")
+        err = float((got - ref).abs().max())
+        check(err == 0.0, f"SISO B={B} K={K} L={L} T={T} ext={emit_ext} "
+                          f"perm={perm is not None}: max abs diff {err}")
+        worst = max(worst, err)
+        print(f"[3 kernels] siso_windowed B={B} K={K} L={L} T={T} emit_ext={emit_ext} "
+              f"perm={perm is not None}: max abs diff {err} (max |llr| "
+              f"{float(ref.abs().max()):.4g})")
+    return worst, (sys_, par, b0, pi)
+
+
 def phase_kernels():
     """Each kernel against its plain version on the card, at small and edge
     shapes and at the shape each path gives it; returns per kernel its largest
@@ -279,26 +355,15 @@ def phase_kernels():
     # window 0 is also the last; B x W odd, so the 16-bit pairing has a dummy
     # half; K not a multiple of L and B not of 32) and at each path's shape.
     edges = ((3, 256, 256, 32), (7, 1152, 128, 32), (77, 1008, 128, 32))
-    variants = lambda pi: ((False, None), (True, None), (False, pi), (True, pi))
 
     # --- SISO ------------------------------------------------------------
+    # the float32 SISO also at the HARQ path's round-2 shape (the code blocks
+    # of the TBs still failing after rv 0)
     siso_err, siso_t = 0.0, {}
-    for (B, K, L, T) in ((64, 40, 8, 4), (64, 1024, 128, 32), *edges, *SISO_SHAPES.values()):
-        sys_, par, b0 = turbo_siso_inputs(rng, B, K)
-        pi = torch.as_tensor(turbo.qpp_perm(K).astype(np.int32), device=dev)
-        for emit_ext, perm in variants(pi):
-            got = tdec_cuda.siso_windowed(sys_, par, b0, L, T, emit_ext=emit_ext, perm=perm)
-            ref = tdec_cuda.siso_windowed_plain(sys_, par, b0, L, T, emit_ext=emit_ext, perm=perm)
-            torch.cuda.synchronize()
-            check(got.dtype == F32 and bool(torch.isfinite(got).all()),
-                  f"SISO K={K}: type or non-finite output")
-            err = float((got - ref).abs().max())
-            check(err == 0.0, f"SISO B={B} K={K} L={L} T={T} ext={emit_ext} "
-                              f"perm={perm is not None}: max abs diff {err}")
-            siso_err = max(siso_err, err)
-            print(f"[3 kernels] siso_windowed B={B} K={K} L={L} T={T} emit_ext={emit_ext} "
-                  f"perm={perm is not None}: max abs diff {err} (max |llr| "
-                  f"{float(ref.abs().max()):.4g})")
+    for (B, K, L, T) in ((64, 40, 8, 4), (64, 1024, 128, 32), *edges, HARQ_RAGGED,
+                         *SISO_SHAPES.values()):
+        err, (sys_, par, b0, pi) = check_siso(rng, B, K, L, T)
+        siso_err = max(siso_err, err)
         key = path_shapes.get((B, K, L, T))
         if key is not None:
             siso_t[key] = time_siso("siso_windowed", sys_, par, b0, pi, L, T)
@@ -309,7 +374,7 @@ def phase_kernels():
     for (B, K, L, T) in (*edges, *SISO_SHAPES.values()):
         st = bf16_siso_state(rng, B, K)
         pi = torch.as_tensor(turbo.qpp_perm(K).astype(np.int32), device=dev)
-        for emit_ext, perm in variants(pi):
+        for emit_ext, perm in ext_perm_variants(pi):
             got = tdec_cuda.siso_windowed(st.sys_sat, st.par1, st.b01, L, T,
                                           emit_ext=emit_ext, perm=perm)
             ref = tdec_cuda.siso_windowed_plain(st.sys_sat, st.par1, st.b01, L, T,
@@ -726,6 +791,378 @@ def phase_ul(ul, bits, ack, cqi, s):
     return counts_ul, medians["float32"]
 
 
+def phase_gold():
+    """The device Gold sequence against the host one, a few seeds at the
+    UL scrambling sequence's length."""
+    from srslte_tpu_torch.phy.common.sequence import gold_sequence, gold_sequence_device
+
+    seeds = (0, 1, (0x46 << 14) | (2 << 9) | 1, 2**31 - 1)
+    n = 82944
+    got = gold_sequence_device(torch.tensor(seeds, device="cuda"), n).cpu().numpy()
+    for seed, row in zip(seeds, got):
+        check(bool((row == gold_sequence(seed, n)).all()),
+              f"device Gold sequence differs from the host one for seed {seed:#x}")
+    print(f"[8 gold] gold_sequence_device of {len(seeds)} seeds x {n} bits on the card equals "
+          f"the host gold_sequence", flush=True)
+
+
+def phase_gates():
+    """The turbo BLER gates on CUDA tensors in both numerics: the stimulus of
+    tests/test_bler_gates.py (same seeds, numpy on the host, 6 iterations).
+    float32 misses fail the run; the 16-bit counts are printed.  Returns
+    {(K, numerics): (block errors, trials)}."""
+    from srslte_tpu_torch.phy.fec.tdec import turbo_decode
+    from srslte_tpu_torch.phy.fec.turbo import turbo_encode_np
+
+    out = {}
+    for k, ebno, n, seed, want in GATES:
+        rng = np.random.default_rng(seed)
+        bits = rng.integers(0, 2, (n, k)).astype(np.uint8)
+        d = turbo_encode_np(bits).astype(np.float32)
+        sigma = np.sqrt(1.0 / (2.0 * (k / d.shape[-1]) * 10 ** (ebno / 10)))
+        llr = (2 * d - 1) + sigma * rng.standard_normal(d.shape).astype(np.float32)
+        llr_t = torch.as_tensor(llr, device="cuda")
+        for dt in (F32, BF16):
+            hard, _ = turbo_decode(llr_t, k, n_iter=6, siso_dtype=dt)
+            errs = int((hard.cpu().numpy() != bits).any(axis=1).sum())
+            name = "float32" if dt == F32 else "16-bit"
+            met = errs == 0 if want == "none" else errs > 0
+            out[(k, name)] = (errs, n)
+            print(f"[9 BLER gates] K={k} Eb/N0 {ebno} dB, {name} SISO: {errs}/{n} block errors "
+                  f"(gate: {'0' if want == 'none' else '> 0'}) -> {'met' if met else 'MISSED'}",
+                  flush=True)
+            if dt == F32:
+                check(met, f"turbo BLER gate K={k} at {ebno} dB: {errs}/{n} block errors")
+    return out
+
+
+class HarqPath:
+    """The DL deployment of `Chain` sending each TB at rv 0, 2, 3, 1
+    (DlGrant.full(100, 27, rv)) and the UE's receive chain into the HARQ
+    soft buffers."""
+
+    def __init__(self, chain):
+        from srslte_tpu_torch.mac.harq import RV_SEQ
+        from srslte_tpu_torch.phy.phch.pdsch import Pdsch
+        from srslte_tpu_torch.phy.phch.ra import DlGrant
+
+        self.chain = chain
+        self.pdsch = {rv: Pdsch(chain.cell, DlGrant.full(100, 27, rv=rv), SF_IDX, cfi=CFI,
+                                rnti=RNTI) for rv in RV_SEQ}
+        for rv, p in self.pdsch.items():
+            check((p.cfg.tbs, p.cfg.G, p.cfg.seg.C, p.cfg.rv) == (63776, 82800, 11, rv),
+                  f"unexpected DL-SCH bucket at rv {rv}")
+
+    def encode(self, bits, rv):
+        """The eNB's subframes carrying bits [n, tbs] at rv -> samples [n, sf_len]."""
+        enb = self.chain.enb
+        g = enb.put_base(enb.empty_grids((bits.shape[0],)), SF_IDX)
+        g = enb.put_pcfich(g, SF_IDX, CFI)
+        g = enb.put_pdsch(g, self.pdsch[rv], bits)
+        return enb.gen_signal(g)[..., 0, :]
+
+    def front_end(self, s, rv, gen):
+        """AWGN at HARQ_SNR_DB -> UeDl.fft_estimate -> Pdsch.soft_bits:
+        (LLRs [n, G], (grid, ce, noise))."""
+        grid, ce, info = self.chain.ue.fft_estimate(UlChain.noisy(s, HARQ_SNR_DB, gen), SF_IDX)
+        return self.pdsch[rv].soft_bits(grid, ce, info["noise"]), (grid, ce, info["noise"])
+
+
+def combine_and_decode(llr, cfg, state, pending):
+    """The receiver's HARQ step for the TBs `pending`: their LLRs combined
+    into their soft buffers (new ones when `state` is None), then decoded:
+    (their soft buffers, (bits, crc_ok))."""
+    from srslte_tpu_torch.mac.harq import combine_llr, decode_state
+
+    sub = combine_llr(llr, cfg, None if state is None else tuple(w[pending] for w in state))
+    return sub, decode_state(sub, cfg)
+
+
+def phase_harq(chain, rng_kernels, profile=False):
+    """DL HARQ over BATCH TBs: rv 0 to all, then rv 2, 3, 1 to the TBs still
+    failing; per round combine_llr into each TB's soft buffer and
+    decode_state.  Checks that the decoded share rises every round while TBs
+    are pending, reaches 99 % after four transmissions, and that every decoded
+    TB equals the bits sent.  Returns the SISO launch counts of all rounds
+    and the ms of round 1's combine + decode."""
+    from srslte_tpu_torch.mac.harq import RV_SEQ
+
+    h = HarqPath(chain)
+    rng = np.random.default_rng(HARQ_SEED)
+    tbs = h.pdsch[0].cfg.tbs
+    bits = torch.as_tensor(rng.integers(0, 2, (BATCH, tbs), dtype=np.uint8), device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(HARQ_SEED)
+    done = torch.zeros(BATCH, dtype=torch.bool, device="cuda")
+    pending = torch.arange(BATCH, device="cuda")
+    state, shares, total, round1_ms = None, [], {}, None
+    for rnd, rv in enumerate(RV_SEQ, 1):
+        n = int(pending.numel())
+        if n == 0:
+            break
+        s = h.encode(bits[pending], rv)
+        llr, (grid, ce, noise) = h.front_end(s, rv, gen)
+        cfg = h.pdsch[rv].cfg
+        if rnd == 2:
+            if 11 * n != HARQ_RAGGED[0]:  # hold the kernel at this round's own shape too
+                check_siso(rng_kernels, 11 * n, *HARQ_RAGGED[1:])
+            alone, ok_alone = h.pdsch[rv].decode(grid, ce, noise)
+            n_alone = int(ok_alone.sum())
+            check(bool((alone[ok_alone] == bits[pending][ok_alone]).all()),
+                  "rv 2 alone: a TB that passed CRC differs from the bits sent")
+        del grid, ce
+        reset_counts()
+        (sub, (dec, ok)), ms, peak = timed(lambda: combine_and_decode(llr, cfg, state, pending))
+        counts = read_counts()
+        check(counts["siso_windowed"] > 0, f"HARQ round {rnd} did not launch the SISO kernel")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        if state is None:
+            state = sub
+        else:
+            for w, ws in zip(state, sub):
+                w[pending] = ws
+        check(dec.shape == (n, tbs) and dec.dtype == torch.uint8, "decoded HARQ TB shape or type")
+        check(bool((dec[ok] == bits[pending][ok]).all()),
+              f"HARQ round {rnd}: a TB that passed CRC differs from the bits sent")
+        done[pending[ok]] = True
+        pending = pending[~ok]
+        share = float(done.float().mean())
+        check(not shares or share > shares[-1],
+              f"HARQ round {rnd} (rv {rv}) decoded nothing more: share {share}")
+        shares.append(share)
+        if rnd == 1:
+            round1_ms = ms
+        extra = (f"; the rv 2 transmission alone through Pdsch.decode: {n_alone}/{n} decoded"
+                 if rnd == 2 else "")
+        print(f"[10 DL HARQ, {HARQ_SNR_DB} dB] round {rnd} (rv {rv}): {n} TBs sent, "
+              f"{int(ok.sum())} newly decoded, decoded share {share:.4f} "
+              f"({int(done.sum())}/{BATCH}); combine_llr + decode_state {ms:.3f} ms on "
+              f"{11 * n} code blocks; launches {counts}; peak device memory {peak}; soft "
+              f"buffers {sum(w.numel() * 4 for w in state) / 1e6:.1f} MB{extra}", flush=True)
+        if profile and rnd == 1:
+            phase_profile("DL HARQ round 1", lambda: combine_and_decode(llr, cfg, None, None), ms)
+    check(shares[-1] >= 0.99, f"HARQ: decoded share {shares[-1]} after {len(shares)} "
+                              f"transmissions, below 99 %")
+    print(f"[10 DL HARQ, {HARQ_SNR_DB} dB] decoded share per round {shares}, residual TB BLER "
+          f"{1 - shares[-1]:.4f}; every decoded TB equals the bits sent; SISO launches over the "
+          f"rounds {total['siso_windowed']}", flush=True)
+    return total, round1_ms
+
+
+class UlControl:
+    """The eNB's UL control stimuli from the port's UE side: PUCCH of ten
+    resources (six 1a ACKs, an empty 1a resource, a format 1 SR, a 2b with a
+    wideband CQI and 2 ACK bits, a format 3 with 10 ACK bits), SRS and
+    PRACH."""
+
+    def __init__(self):
+        from srslte_tpu_torch.phy.common.params import Cell
+        from srslte_tpu_torch.phy.enb.enb_ul import EnbUl
+        from srslte_tpu_torch.phy.phch.prach import PrachConfig
+        from srslte_tpu_torch.phy.phch.pucch import Pucch, PucchConfig
+        from srslte_tpu_torch.phy.phch.srs import Srs, srs_config_from_bw
+        from srslte_tpu_torch.phy.ue.ue_ul import UeUl
+
+        self.cell = Cell(n_prb=100, id=1, nof_ports=1)
+        self.ue, self.enb = UeUl(self.cell), EnbUl(self.cell)
+        f1 = lambda fmt, n: Pucch(self.cell, PucchConfig(fmt, n, n_rb_2=N_RB_2), UL_SF_IDX, RNTI)
+        self.acks = [f1("1a", N1_PUCCH_AN + c) for c in ACK_NCCE]
+        self.dtx = f1("1a", N1_PUCCH_AN + DTX_NCCE)
+        self.sr = f1("1", RNTI % 12)
+        self.f2b = Pucch(self.cell, PucchConfig("2b", N_PUCCH_2, n_rb_2=N_RB_2), UL_SF_IDX, RNTI)
+        self.f3 = Pucch(self.cell, PucchConfig("3", N_PUCCH_3, n_rb_2=N_RB_2), UL_SF_IDX, RNTI)
+        self.srs = Srs(self.cell, srs_config_from_bw(100, bw_cfg=0, b_srs=0, n_rrc=0))
+        check(self.srs.cfg.m_srs == 96, "SRS C_SRS 0 at 100 PRB is not 96 PRB")
+        self.prach = PrachConfig(self.cell.ofdm, root_seq_idx=0, zero_corr_cfg=7)
+        check((self.prach.n_cs, self.prach.n_fft) == (38, 24576), "unexpected PRACH config")
+        # the formats' RE sets: every format-1 resource (CDM inside one PRB
+        # pair), the empty resource, format 2b and format 3 pairwise disjoint
+        res = lambda p: set(p.re_indices().tolist())
+        groups = {"format 1": set().union(*map(res, self.acks + [self.sr])),
+                  "empty 1a": res(self.dtx), "format 2b": res(self.f2b), "format 3": res(self.f3)}
+        for (a, ra), (b, rb) in itertools.combinations(groups.items(), 2):
+            check(not ra & rb, f"PUCCH {a} and {b} share resource elements")
+        self.groups = groups
+
+    def pucch_stimulus(self, rng, gen):
+        """BATCH subframes: the payloads and the eNB's received samples (the
+        UEs' signals summed, AWGN at PUCCH_SNR_DB per occupied RE)."""
+        from srslte_tpu_torch.phy.phch.cqi import WidebandCqi
+
+        pay = {"acks": rng.integers(0, 2, (BATCH, len(self.acks), 1), dtype=np.uint8),
+               "cqi": rng.integers(0, 16, BATCH),
+               "ack2": rng.integers(0, 2, (BATCH, 2), dtype=np.uint8),
+               "ack3": rng.integers(0, 2, (BATCH, 10), dtype=np.uint8)}
+        pay["cqi_bits"] = np.stack([WidebandCqi(cqi=int(c)).pack() for c in pay["cqi"]])
+        s = self.ue.encode_pucch(self.sr, device="cuda").expand(BATCH, -1)
+        for i, p in enumerate(self.acks):
+            s = s + self.ue.encode_pucch(p, ack_bits=pay["acks"][:, i], device="cuda")
+        s = s + self.ue.encode_pucch(self.f2b, ack_bits=pay["ack2"], cqi_bits=pay["cqi_bits"],
+                                     device="cuda")
+        s = s + self.ue.encode_pucch(self.f3, ack_bits=pay["ack3"], device="cuda")
+        return pay, s + noise_like(s, 10 ** (-PUCCH_SNR_DB / 10), gen)
+
+    def decode_pucch(self, rx, times=None):
+        """EnbUl.decode_pucch once per UE resource, each over the batch."""
+        calls = [("ack", p, {}) for p in self.acks] + [
+            ("dtx", self.dtx, {}), ("sr", self.sr, {}), ("f2b", self.f2b, {"nof_cqi_bits": 4}),
+            ("f3", self.f3, {"nof_ack3_bits": 10})]
+        out = []
+        for name, p, kw in calls:
+            if times is not None:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            out.append((name, self.enb.decode_pucch(rx, p, **kw)))
+            if times is not None:
+                torch.cuda.synchronize()
+                times.append((name, (time.perf_counter() - t0) * 1e3))
+        return out
+
+
+def noise_like(s, var, gen):
+    """Complex AWGN of variance var per sample (per RE after the unitary
+    SC-FDMA demodulator), shaped like s."""
+    n = torch.randn((2,) + s.shape, generator=gen, device=s.device) * math.sqrt(var / 2)
+    return torch.complex(n[0], n[1])
+
+
+def timed(fn):
+    """(fn(), host ms, peak device memory) of one call that ends in a
+    synchronise; the memory as "peak MB (MB above what was allocated
+    before)"."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    return out, ms, (f"{peak / 1e6:.1f} MB ({(peak - before) / 1e6:.1f} MB above what was "
+                     f"allocated before)")
+
+
+def phase_ul_control(profile=False):
+    """PUCCH, SRS and PRACH of the eNB at 100 PRB, 128 subframes or windows
+    per dispatch; checks the decisions (see the module docstring)."""
+    from srslte_tpu_torch.phy.phch.prach import prach_detect, prach_gen
+
+    uc = UlControl()
+    rng = np.random.default_rng(53)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(53)
+    print(f"[11 UL control] PUCCH resources at subframe {UL_SF_IDX}: 1a ACKs n_pucch "
+          f"{[p.cfg.n_pucch for p in uc.acks]}, empty 1a {uc.dtx.cfg.n_pucch}, SR "
+          f"{uc.sr.cfg.n_pucch}, 2b {N_PUCCH_2}, 3 {N_PUCCH_3}; RE sets of the formats "
+          f"pairwise disjoint ({', '.join(f'{k} {len(v)}' for k, v in uc.groups.items())} REs)",
+          flush=True)
+    # the noise per RE after EnbUl's SC-FDMA demodulation, from noise alone
+    probe = uc.enb.ofdm.rx_sf(noise_like(torch.zeros((8, 30720), dtype=torch.complex64,
+                                                     device="cuda"), 1.0, gen))
+    per_re = float(torch.mean(torch.abs(probe) ** 2))
+    check(abs(per_re - 1.0) < 0.01, f"SC-FDMA demodulator not unitary: {per_re}")
+
+    # --- PUCCH ---
+    pay, rx = uc.pucch_stimulus(rng, gen)
+    uc.decode_pucch(rx)  # warm-up: tables built and uploaded
+    times = []
+    out, total_ms, peak = timed(lambda: uc.decode_pucch(rx, times))
+    res = dict()
+    acks = [o for name, o in out if name == "ack"]
+    ack_metrics = [a["metric"] for a in acks]
+    right = [int(((o["ack"].cpu().numpy()[:, 0] == pay["acks"][:, i, 0])).sum())
+             for i, o in enumerate(acks)]
+    o = dict((name, o) for name, o in out if name != "ack")
+    dtx_metric = o["dtx"]["metric"].cpu().numpy()
+    res["sr"] = int(o["sr"]["detected"].sum())
+    cqi_ok = np.all(o["f2b"]["cqi"].cpu().numpy() == pay["cqi_bits"], axis=-1)
+    ack2_ok = np.all(o["f2b"]["ack"].cpu().numpy() == pay["ack2"], axis=-1)
+    res["f2b"] = int((cqi_ok & ack2_ok).sum())
+    res["f3"] = int(np.all(o["f3"]["ack"].cpu().numpy() == pay["ack3"], axis=-1).sum())
+    res["dtx"] = int((dtx_metric < ACK_DET_THRESH).sum())
+    need = math.ceil(0.99 * BATCH)
+    for i, r in enumerate(right):
+        check(r >= need, f"PUCCH 1a UE {i}: ACK right in {r}/{BATCH}")
+    check(res["sr"] >= need, f"PUCCH SR detected in {res['sr']}/{BATCH}")
+    check(res["f2b"] >= need, f"PUCCH 2b CQI and ACK right in {res['f2b']}/{BATCH}")
+    check(res["f3"] >= need, f"PUCCH 3: 10 ACK bits right in {res['f3']}/{BATCH}")
+    print(f"[11 UL control, PUCCH {PUCCH_SNR_DB} dB per RE] {BATCH} subframes: 1a ACK right per "
+          f"UE {right}; SR detected {res['sr']}; 2b CQI + 2 ACK bits right {res['f2b']}; "
+          f"format 3 10 bits right {res['f3']} (each of {BATCH}, >= {need} required)", flush=True)
+    print(f"[11 UL control, PUCCH] empty 1a resource (DTX): metric below ACK_DET_THRESH "
+          f"{ACK_DET_THRESH} in {res['dtx']}/{BATCH} subframes; metric median "
+          f"{float(np.median(dtx_metric)):.3f}, 1st/99th percentile "
+          f"{float(np.percentile(dtx_metric, 1)):.3f}/{float(np.percentile(dtx_metric, 99)):.3f}; "
+          f"the six ACK resources' median {float(torch.median(torch.cat(ack_metrics))):.3f}",
+          flush=True)
+    print(f"[11 UL control, PUCCH] EnbUl.decode_pucch over {BATCH} subframes, ms per UE call: "
+          f"{', '.join(f'{n} {t:.3f}' for n, t in times)}; total {total_ms:.3f} ms for "
+          f"{len(times)} calls; peak device memory {peak}", flush=True)
+
+    # --- SRS ---
+    o = uc.cell.ofdm
+    h_true = 0.8 * np.exp(0.5j)
+    var = 10 ** (-SRS_SNR_DB / 10)
+    g = uc.srs.encode(torch.zeros((BATCH, o.nsymb_sf, o.nof_re), dtype=torch.complex64,
+                                  device="cuda"))
+    s_srs = uc.ue.ofdm.tx_sf(g) * complex(h_true)
+    s_srs = s_srs + noise_like(s_srs, var, gen)
+    uc.srs.estimate(uc.enb.ofdm.rx_sf(s_srs))  # warm-up
+    (h, noise, power), srs_ms, srs_peak = timed(
+        lambda: uc.srs.estimate(uc.enb.ofdm.rx_sf(s_srs)))
+    rel = noise.cpu().numpy() / var - 1
+    h_err = abs(complex(h.mean().cpu()) - h_true)
+    check(float(np.abs(rel).max()) <= 0.2, f"SRS noise estimate off by {float(np.abs(rel).max())}")
+    check(h_err < 0.05, f"SRS channel estimate off by {h_err}")
+    print(f"[11 UL control, SRS {SRS_SNR_DB} dB] {BATCH} symbols of {uc.srs.cfg.m_sc} comb REs "
+          f"(96 PRB): noise estimate / true noise {1 + float(rel.min()):.4f} to "
+          f"{1 + float(rel.max()):.4f} (within 20 % required), mean channel error {h_err:.4f}; "
+          f"rx_sf + Srs.estimate {srs_ms:.3f} ms per dispatch, peak device memory "
+          f"{srs_peak}", flush=True)
+
+    # --- PRACH ---
+    cfg = uc.prach
+    idx = (7 * np.arange(BATCH)) % 64
+    delay = rng.integers(0, PRACH_MAX_DELAY, BATCH)
+    win = cfg.n_total + PRACH_MAX_DELAY
+    x = np.zeros((BATCH, win), np.complex64)
+    for i in range(BATCH):
+        x[i, delay[i] : delay[i] + cfg.n_total] = prach_gen(cfg, int(idx[i]))
+    xs = torch.as_tensor(x, device="cuda")
+    xs = xs + noise_like(xs, 10 ** (-PRACH_SNR_DB / 10), gen)
+    prach_detect(cfg, xs)  # warm-up
+    (det, metric, toff), prach_ms, prach_peak = timed(lambda: prach_detect(cfg, xs))
+    det, toff = det.cpu().numpy(), toff.cpu().numpy()
+    rows = np.arange(BATCH)
+    hit = det[rows, idx]
+    lag = cfg.n_fft / cfg.nzc
+    t_err = np.abs(toff[rows, idx].astype(np.int64) - delay)
+    others = int(det.sum() - hit.sum())
+    check(bool(hit.all()), f"PRACH: {int(hit.sum())}/{BATCH} preambles detected at their index")
+    check(float(t_err.max()) <= lag + 1, f"PRACH timing off by {int(t_err.max())} samples")
+    noise_only = noise_like(xs, 1.0, gen)
+    det0 = prach_detect(cfg, noise_only)[0]
+    false = int(det0.sum())
+    check(false <= 4, f"PRACH: {false} false detections on noise alone")
+    roots = torch.zeros((BATCH, cfg.n_roots, cfg.nzc), dtype=torch.complex64, device="cuda")
+    ifft_ms = event_ms(lambda: torch.fft.ifft(roots, dim=-1), 20)
+    roots_p2 = torch.zeros((BATCH, cfg.n_roots, 1024), dtype=torch.complex64, device="cuda")
+    ifft2_ms = event_ms(lambda: torch.fft.ifft(roots_p2, dim=-1), 20)
+    print(f"[11 UL control, PRACH {PRACH_SNR_DB} dB] {BATCH} format 0 windows (root 0, N_cs "
+          f"{cfg.n_cs}, {cfg.n_roots} roots): every preamble detected at its index, timing within "
+          f"{int(t_err.max())} samples (one lag {lag:.1f}), {others} other detections; noise "
+          f"alone: {false} false detections in {BATCH} x 64 hypotheses; prach_detect "
+          f"{prach_ms:.3f} ms per dispatch, peak device memory {prach_peak}; the "
+          f"{cfg.nzc}-point IFFT of [{BATCH}, {cfg.n_roots}] rows alone {ifft_ms:.4f} ms "
+          f"(1024 points: {ifft2_ms:.4f} ms)", flush=True)
+    if profile:
+        phase_profile("UL control", lambda: (uc.decode_pucch(rx),
+                                             uc.srs.estimate(uc.enb.ofdm.rx_sf(s_srs)),
+                                             prach_detect(cfg, xs)),
+                      total_ms + srs_ms + prach_ms)
+
+
 def phase_profile(label, run, dispatch_ms):
     """One dispatch (`run()`) under torch.profiler: the device's kernel time
     by name, and its share of an unprofiled dispatch (`dispatch_ms`)."""
@@ -783,12 +1220,18 @@ def main():
     print(f"[6 UL path] stimulus: {BATCH} subframes encoded on the card by UeUl in "
           f"{time.perf_counter() - t0:.1f} s (tables built and uploaded on first use)", flush=True)
     counts_ul, ul_ms = phase_ul(ul, ul_bits, ack, cqi, ul_s)
-    if "--profile" in sys.argv[1:]:
+    profile = "--profile" in sys.argv[1:]
+    if profile:
         gen = torch.Generator(device="cuda")
         gen.manual_seed(99)
         phase_profile("DL", lambda: chain.decode(s, SNR_DB, gen), dispatch_ms)
         phase_profile("UL", lambda: ul.decode(ul_s, UL_SNR_DB, gen), ul_ms)
-    counts = {"dl_f32": counts_dl, "dl_bf16": counts_dl16, **counts_ul}
+    del s, ul_s
+    phase_gold()
+    phase_gates()
+    counts_harq, _ = phase_harq(chain, np.random.default_rng(2025), profile)
+    phase_ul_control(profile)
+    counts = {"dl_f32": counts_dl, "dl_bf16": counts_dl16, **counts_ul, "dl_harq": counts_harq}
     line = []
     for name, k in kernels.items():
         # per path: the launches of its one counted noisy dispatch, and the

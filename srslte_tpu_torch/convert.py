@@ -2,9 +2,9 @@
 
 The system has no trained weights.  What takes their place is the static
 tables of a bucket, which each package builds itself (the tests hold them
-equal), and the resumable turbo-decoder state.  The functions here take the
-JAX package's objects as numpy arrays (the caller does the ``np.asarray``)
-and return this package's.
+equal), the resumable turbo-decoder state and the HARQ soft buffers.  The
+functions here take the JAX package's objects as numpy arrays (the caller
+does the ``np.asarray``) and return this package's.
 """
 
 from __future__ import annotations
@@ -21,6 +21,15 @@ def apr_from_numpy(apr, device=None) -> torch.Tensor:
     ``turbo_decode(..., return_state=True)``, for
     ``tdec.turbo_decode(..., apr0=...)``."""
     return as_tensor(np.asarray(apr, np.float32), resolve(device))
+
+
+def harq_state_from_numpy(state, device=None) -> tuple:
+    """HARQ soft buffers, as returned by the JAX package's
+    ``mac.harq.combine_llr`` (a tuple of per-group [..., count, 3(K+4)]
+    arrays), for ``mac.harq.combine_llr(..., state=...)`` and
+    ``mac.harq.decode_state``."""
+    dev = resolve(device)
+    return tuple(as_tensor(np.asarray(w, np.float32), dev) for w in state)
 
 
 def turbo_state_from_numpy(sys, par1, par2, tails, e1, ext2, sc=1.0,

@@ -5,7 +5,9 @@ The 31-bit LFSR state words double as 31-output blocks (output bit
 c(n) = x1(n) ^ x2(n), and the low bit of the state IS the next output), so
 generation is a loop over ceil(len/31) block steps of integer bitwise ops.
 Sequences are config-time tables (seeds are known per cell/RNTI/subframe):
-they are built on the host with numpy and uploaded once per device.
+they are built on the host with numpy and uploaded once per device.  For a
+seed that is only known on the device, `gold_sequence_device` computes the
+sequence as one GF(2) matrix product.
 
 Sign convention (sequence.c:360): bit 0 -> +1.0, bit 1 -> -1.0.
 """
@@ -15,6 +17,10 @@ from __future__ import annotations
 import functools
 
 import numpy as np
+import torch
+
+from ..._device import as_tensor
+from ..fec.crc import gf2_matmul
 
 NC = 1600  # fast-forward length per 36.211 §7.2
 
@@ -85,8 +91,29 @@ def gold_sequence_signed(seed: int, length: int) -> np.ndarray:
     return (1.0 - 2.0 * gold_sequence(seed, length)).astype(np.float32)
 
 
-def gold_sequence_jax(seed, length: int):
-    """Generator for seeds that are only known on the device: not ported."""
-    raise NotImplementedError(
-        "on-device Gold sequence for dynamic seeds is not ported yet "
-        "(ROADMAP queue A item 1)")
+@functools.lru_cache(maxsize=8)
+def _gold_linear_map(length: int) -> tuple[np.ndarray, np.ndarray]:
+    """(A [31, length] uint8, x1 [length] uint8): c = (seed_bits @ A) ^ x1.
+
+    The Nc fast-forward and every 31-bit block step of x2 are linear over
+    GF(2), and x1 does not depend on the seed, so output bit n is a fixed
+    GF(2) combination of the seed's 31 bits XOR x1's bit n.  Row j of A is
+    the x2 stream of seed 2^j (x1 cancels in the XOR with seed 0)."""
+    x1 = gold_sequence(0, length)
+    a = np.stack([gold_sequence(1 << j, length) ^ x1 for j in range(31)])
+    return a, x1
+
+
+def gold_sequence_device(seed, length: int, device=None) -> torch.Tensor:
+    """Gold sequence for seeds held in a tensor: seed [...] (integer) ->
+    uint8 bits [..., length] on the seed's device.
+
+    The counterpart of the JAX package's ``gold_sequence_jax`` (a scan of
+    block steps after a loop of Nc single steps): here one float32 product
+    of the seed's 31 bits with a GF(2) matrix built on the host (exact: every
+    sum is at most 31), then the XOR with the seed-independent x1 stream."""
+    seed = as_tensor(seed, device).to(torch.int64)
+    bits = (seed[..., None] >> torch.arange(31, device=seed.device)) & 1
+    c = gf2_matmul(bits, ("gold_a", length), lambda: _gold_linear_map(length)[0])
+    x1 = as_tensor(_gold_linear_map(length)[1], seed.device)
+    return c.to(torch.uint8) ^ x1

@@ -1,8 +1,8 @@
 """eNB uplink receiver composition (enb_ul.c equivalent).
 
 Reference behavior: lib/src/phy/enb/enb_ul.c — SC-FDMA demodulation with the
--0.5 subcarrier shift, chest_ul + PUSCH decode (srsran_enb_ul_get_pusch).
-Ported: PUSCH.  PUCCH is ROADMAP queue A item 9.
+-0.5 subcarrier shift, chest_ul + PUSCH decode (srsran_enb_ul_get_pusch),
+PUCCH decode (srsran_enb_ul_get_pucch).
 """
 
 from __future__ import annotations
@@ -31,7 +31,7 @@ class EnbUl:
         grid = self.ofdm.rx_sf(samples, device)
         return pusch.decode(grid, n_iter=n_iter, siso_dtype=siso_dtype)
 
-    def decode_pucch(self, samples, pucch, **kw):
-        """PUCCH decode: not ported yet."""
-        raise NotImplementedError(
-            "PUCCH is not ported yet (ROADMAP queue A item 9: rest of the UL chain)")
+    def decode_pucch(self, samples, pucch, device=None, **kw):
+        """samples [..., sf_len] -> pucch.decode dict (SR/ACK/CQI)."""
+        grid = self.ofdm.rx_sf(samples, device)
+        return pucch.decode(grid, **kw)

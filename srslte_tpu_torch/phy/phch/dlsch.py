@@ -10,8 +10,9 @@ GF(2) matrix products (fec.crc.crc_ok_device).  The decoder's early
 termination is a cascade of phases whose branches are taken on the host from
 CRC counts read back from the device.
 
-Ported: redundancy version 0 decoded from one transmission.  HARQ combining
-over rv > 0 soft buffers is ROADMAP queue A item 9.
+Every redundancy version decodes through the same path: the de-rate-matching
+tables of a bucket are built for its `rv`.  Combining several transmissions
+into one soft buffer is `mac.harq`.
 """
 
 from __future__ import annotations
@@ -187,9 +188,6 @@ def dlsch_decode(llr, cfg: DlschConfig, n_iter: int = 5, early: int = 1,
     one bfloat16 scale.
     """
     llr = as_tensor(llr, device, torch.float32)
-    if cfg.rv != 0:
-        raise NotImplementedError(
-            "HARQ combining over rv > 0 is not ported yet (ROADMAP queue A item 9)")
     if not (early and early < n_iter):
         return _dlsch_decode_fixed(llr, cfg, n_iter, siso_dtype)
 

@@ -163,13 +163,13 @@ class Pdsch:
         return flat.reshape(grids.shape)
 
     # -- UE side ------------------------------------------------------------
-    def decode(self, grid, ce, noise_var, n_iter: int = 5, device=None,
-               siso_dtype: torch.dtype = torch.float32):
-        """grid [..., nsym, nre], ce [..., nports, nsym, nre] -> (bits, crc_ok).
+    def soft_bits(self, grid, ce, noise_var, device=None):
+        """grid [..., nsym, nre], ce [..., nports, nsym, nre] -> descrambled
+        LLRs [..., G] (positive => bit 1).
 
-        Equalizes (zero forcing, 1 port), demodulates with noise-scaled LLRs,
-        descrambles and runs DL-SCH decoding (`siso_dtype`: the turbo
-        decoder's working dtype, see `dlsch.dlsch_decode`).
+        Equalizes (zero forcing, 1 port), demodulates, weights each RE's LLRs
+        by its post-equalization SNR and descrambles: what a HARQ soft buffer
+        combines (`mac.harq.combine_llr`) and `decode` decodes.
         """
         grid = as_tensor(grid, device)
         ce = as_tensor(ce, grid.device)
@@ -188,5 +188,14 @@ class Pdsch:
         llr = demod_soft(xhat, self.grant.modulation)
         qm = self.grant.modulation.bits_per_symbol
         llr = llr * torch.repeat_interleave(w, qm, dim=-1)
-        llr = scramble_llr(llr, self.cinit)
+        return scramble_llr(llr, self.cinit)
+
+    def decode(self, grid, ce, noise_var, n_iter: int = 5, device=None,
+               siso_dtype: torch.dtype = torch.float32):
+        """grid [..., nsym, nre], ce [..., nports, nsym, nre] -> (bits, crc_ok).
+
+        `soft_bits`, then DL-SCH decoding (`siso_dtype`: the turbo decoder's
+        working dtype, see `dlsch.dlsch_decode`).
+        """
+        llr = self.soft_bits(grid, ce, noise_var, device)
         return dlsch_decode(llr, self.cfg, n_iter=n_iter, siso_dtype=siso_dtype)

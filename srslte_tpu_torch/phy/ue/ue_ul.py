@@ -3,7 +3,6 @@
 Reference behavior: lib/src/phy/ue/ue_ul.c — srsran_ue_ul_encode: PUSCH/
 PUCCH/SRS encode -> SC-FDMA modulation with the +0.5 subcarrier shift
 (ue_ul.c:62 normalized OFDM, freq shift) -> CFO pre-compensation.
-Ported: PUSCH.  PUCCH and SRS are ROADMAP queue A item 9.
 """
 
 from __future__ import annotations
@@ -35,7 +34,8 @@ class UeUl:
             samples = cfo_correct(samples, -cfo, self.cell.ofdm.symbol_sz)
         return samples
 
-    def encode_pucch(self, pucch, ack_bits=(), cqi_bits=()):
-        """PUCCH-only subframe: not ported yet."""
-        raise NotImplementedError(
-            "PUCCH is not ported yet (ROADMAP queue A item 9: rest of the UL chain)")
+    def encode_pucch(self, pucch, ack_bits=(), cqi_bits=(), device=None):
+        """PUCCH-only subframe (SR / ACK / CQI) -> time samples [..., sf_len];
+        the payloads as `Pucch.encode` takes them."""
+        grid = pucch.encode(ack_bits=ack_bits, cqi_bits=cqi_bits, device=device)
+        return self.ofdm.tx_sf(grid)

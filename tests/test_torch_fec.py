@@ -8,6 +8,7 @@ both packages.  Hard outputs (bits, CRC flags) must be equal exactly; float
 outputs to the tolerance stated at each test.
 """
 
+import dataclasses
 import functools
 
 import jax
@@ -589,5 +590,18 @@ def test_dlsch_encode_decode_multi_cb_and_short(tbs, G, Qm, snr_db):
         assert okj.sum() == 5 and not okj[1, 2]
         np.testing.assert_array_equal(bt.numpy()[okj], np.asarray(bj)[okj])
         np.testing.assert_array_equal(bt.numpy()[okj], bits[okj])
-    with pytest.raises(NotImplementedError):
-        t_dlsch.dlsch_decode(llr, t_dlsch.DlschConfig(tbs, G, Qm, rv=1), device=CPU)
+    # a retransmission at rv 1 (6 dB stronger: alone, it lacks most of the
+    # systematic bits) decodes through the same path in both packages
+    jcfg1, tcfg1 = (dataclasses.replace(c, rv=1) for c in (jcfg, tcfg))
+    c1 = t_dlsch.dlsch_encode(bits, tcfg1, device=CPU).numpy()
+    np.testing.assert_array_equal(
+        c1, np.asarray(jax.jit(lambda b: j_dlsch.dlsch_encode(b, jcfg1))(jnp.asarray(bits))))
+    s1 = sigma / 2
+    llr1 = (-((1 - 2 * c1.astype(np.float32)) + s1 * rng.standard_normal(c1.shape))
+            * 2 / s1**2).astype(np.float32)
+    bj, okj = jax.jit(lambda x: j_dlsch.dlsch_decode(x, jcfg1, n_iter=4))(jnp.asarray(llr1))
+    bt, okt = t_dlsch.dlsch_decode(llr1, tcfg1, n_iter=4, device=CPU)
+    okj = np.asarray(okj)
+    np.testing.assert_array_equal(okt.numpy(), okj)
+    assert okj.any()
+    np.testing.assert_array_equal(bt.numpy()[okj], bits[okj])

@@ -30,8 +30,11 @@ import srslte_tpu.phy.phch.dlsch as j_dlsch
 import srslte_tpu.phy.phch.pcfich as j_pcfich
 import srslte_tpu.phy.phch.pdcch as j_pdcch
 import srslte_tpu.phy.phch.pdsch as j_pdsch
+import srslte_tpu.phy.phch.prach as j_prach
+import srslte_tpu.phy.phch.pucch as j_pucch
 import srslte_tpu.phy.phch.ra as j_ra
 import srslte_tpu.phy.phch.regs as j_regs
+import srslte_tpu.phy.phch.srs as j_srs
 import srslte_tpu.phy.sync.sss as j_sss
 import srslte_tpu_torch.phy.chest.chest_dl as t_chest
 import srslte_tpu_torch.phy.chest.refsignal_dl as t_rs
@@ -50,8 +53,11 @@ import srslte_tpu_torch.phy.phch.dlsch as t_dlsch
 import srslte_tpu_torch.phy.phch.pcfich as t_pcfich
 import srslte_tpu_torch.phy.phch.pdcch as t_pdcch
 import srslte_tpu_torch.phy.phch.pdsch as t_pdsch
+import srslte_tpu_torch.phy.phch.prach as t_prach
+import srslte_tpu_torch.phy.phch.pucch as t_pucch
 import srslte_tpu_torch.phy.phch.ra as t_ra
 import srslte_tpu_torch.phy.phch.regs as t_regs
+import srslte_tpu_torch.phy.phch.srs as t_srs
 import srslte_tpu_torch.phy.sync.sss as t_sss
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -365,3 +371,129 @@ def test_dlsch_groups_and_derm_tables(tbs, G, Qm):
     jcfg, tcfg = j_dlsch.DlschConfig(tbs, G, Qm), t_dlsch.DlschConfig(tbs, G, Qm)
     assert [dataclasses.asdict(g) for g in jcfg.groups] == \
         [dataclasses.asdict(g) for g in tcfg.groups]
+
+
+# ------------------------------------------------ PUCCH, SRS, PRACH tables
+@pytest.mark.parametrize("npz", ["prach_roots.npz", "srs_bw.npz"])
+def test_npz_copies(npz):
+    """The port's own copies of the JAX package's data files hold the same
+    arrays."""
+    j = np.load(ROOT / "srslte_tpu/phy/phch" / npz)
+    t = np.load(ROOT / "srslte_tpu_torch/phy/phch" / npz)
+    assert sorted(j.files) == sorted(t.files)
+    for k in j.files:
+        eq(j[k], t[k])
+
+
+def pucch_cfgs(pkg):
+    """Format 1* resources either side of the mixed-PRB threshold, format 2
+    inside and above N_RB^(2), format 3."""
+    return ([pkg.PucchConfig(f, n, ds, ncs1, nrb2) for f in ("1", "1a", "1b")
+             for n, ds, ncs1, nrb2 in ((0, 1, 0, 0), (5, 2, 6, 1), (40, 3, 6, 2), (100, 1, 0, 3))]
+            + [pkg.PucchConfig(f, n, 1, ncs1, nrb2) for f in ("2", "2a", "2b")
+               for n, ncs1, nrb2 in ((5, 0, 1), (30, 6, 2))]
+            + [pkg.PucchConfig("3", n) for n in (0, 7, 23)])
+
+
+@pytest.mark.parametrize("cp", ["norm", "ext"])
+@pytest.mark.parametrize("n_prb,cell_id", [(6, 13), (25, 77), (100, 1)])
+def test_pucch_tables(n_prb, cell_id, cp):
+    jc, tc = cells(n_prb, cell_id, cp=cp)
+    eq(j_pucch.n_cs_cell(jc), t_pucch.n_cs_cell(tc))
+    jcp, tcp = j_params.CP(cp), t_params.CP(cp)
+    assert j_pucch.f1_syms(jcp) == t_pucch.f1_syms(tcp)
+    assert j_pucch.f2_syms(jcp) == t_pucch.f2_syms(tcp)
+    for jcfg, tcfg in zip(pucch_cfgs(j_pucch), pucch_cfgs(t_pucch)):
+        assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg)
+        assert jcfg.nof_ack_bits == tcfg.nof_ack_bits
+        assert j_pucch.pucch_m(jc, jcfg) == t_pucch.pucch_m(tc, tcfg)
+        key = (jcfg.fmt, jcfg.n_pucch, jcfg.delta_shift, jcfg.n_cs_1, jcfg.n_rb_2)
+        for sf in (0, 3, 9):
+            for ns in (2 * sf, 2 * sf + 1):
+                assert j_pucch.pucch_prb(jc, jcfg, ns) == t_pucch.pucch_prb(tc, tcfg, ns)
+                for l in range(jc.cp.nsymb):
+                    if jcfg.is_format1:
+                        assert (j_pucch._alpha_format1(jc, jcfg, ns, l)
+                                == t_pucch._alpha_format1(tc, tcfg, ns, l))
+                    else:
+                        assert (j_pucch._alpha_format2(jc, jcfg, ns, l)
+                                == t_pucch._alpha_format2(tc, tcfg, ns, l))
+            if jcfg.is_format1:
+                for short in (False, True):
+                    for a, b in zip(j_pucch._format1_tables(jc, key, sf, short),
+                                    t_pucch._format1_tables(tc, key, sf, short)):
+                        for x, y in zip(a, b):
+                            eq(x, y)
+            elif jcfg.fmt == "3":
+                for short in (False, True):
+                    for a, b in zip(j_pucch._format3_tables(jc, key, sf, short),
+                                    t_pucch._format3_tables(tc, key, sf, short)):
+                        for x, y in zip(a, b):
+                            eq(x, y)
+            else:
+                for x, y in zip(j_pucch._format2_tables(jc, key, sf),
+                                t_pucch._format2_tables(tc, key, sf)):
+                    eq(x, y)
+            for n in (20, 48):
+                eq(j_pucch._f2_scramble_signed(jc, 0x46, sf, n),
+                   t_pucch._f2_scramble_signed(tc, 0x46, sf, n))
+
+
+def test_pucch_block_codes():
+    for a in range(1, 14):
+        eq(j_pucch._rm20_codebook(a), t_pucch._rm20_codebook(a))
+        for m in (0, 1, 2**a - 1, 5 % 2**a):
+            bits = ((m >> np.arange(a)) & 1).astype(np.uint8)
+            eq(j_pucch.rm20_encode(bits), t_pucch.rm20_encode(bits))
+    for bits in ((), (0,), (1,), (0, 0), (0, 1), (1, 0), (1, 1)):
+        assert j_pucch._d_ack(bits) == t_pucch._d_ack(bits)
+
+
+def test_srs_tables():
+    for a, b in zip(j_srs._bw_tables(), t_srs._bw_tables()):
+        eq(a, b)
+    for n_prb in (6, 25, 40, 50, 60, 75, 80, 100):
+        assert j_srs._bw_row(n_prb) == t_srs._bw_row(n_prb)
+        for b_srs in range(4):
+            for bw_cfg in range(8):
+                assert (j_srs.srs_bandwidth(n_prb, b_srs, bw_cfg)
+                        == t_srs.srs_bandwidth(n_prb, b_srs, bw_cfg))
+                for b_hop, i_srs, tti, n_rrc in ((4, 0, 0, 3), (0, 7, 20, 1), (1, 17, 57, 9)):
+                    args = (n_prb, b_srs, bw_cfg, n_rrc)
+                    kw = dict(b_hop=b_hop, i_srs=i_srs, tti=tti)
+                    assert j_srs.srs_k0_prb(*args, **kw) == t_srs.srs_k0_prb(*args, **kw)
+                    assert (j_srs.srs_fb(n_prb, b_srs, bw_cfg, b_hop, i_srs, tti)
+                            == t_srs.srs_fb(n_prb, b_srs, bw_cfg, b_hop, i_srs, tti))
+                    assert (dataclasses.asdict(j_srs.srs_config_from_bw(
+                        n_prb, bw_cfg, b_srs, n_rrc, 1, 3, **kw))
+                        == dataclasses.asdict(t_srs.srs_config_from_bw(
+                            n_prb, bw_cfg, b_srs, n_rrc, 1, 3, **kw)))
+    for i_srs in range(0, 700, 7):
+        assert j_srs.t_srs(i_srs) == t_srs.t_srs(i_srs)
+        assert j_srs.srs_toffset(i_srs) == t_srs.srs_toffset(i_srs)
+        for tti in (0, 1, 10, 77):
+            assert j_srs.srs_send_tti(i_srs, tti) == t_srs.srs_send_tti(i_srs, tti)
+    jc, tc = cells(100, 1)
+    cfg = dict(m_srs=96, k0_prb=2, comb=1, n_srs_cs=5)
+    js, ts = j_srs.Srs(jc, j_srs.SrsConfig(**cfg)), t_srs.Srs(tc, t_srs.SrsConfig(**cfg))
+    eq(js.seq, ts.seq)
+    eq(js.k_idx, ts.k_idx)
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(root_seq_idx=22, zero_corr_cfg=4, high_speed=True),
+                                dict(root_seq_idx=3, zero_corr_cfg=2, fmt=4),
+                                dict(zero_corr_cfg=7, fmt=2, freq_offset_prb=4),
+                                dict(zero_corr_cfg=0, fmt=1)])
+def test_prach_tables(kw):
+    for n_prb in (6, 25, 100):
+        jcfg = j_prach.PrachConfig(j_params.OfdmParams(n_prb), **kw)
+        tcfg = t_prach.PrachConfig(t_params.OfdmParams(n_prb), **kw)
+        for name in ("nzc", "delta_f_ra", "k", "phi", "n_cs", "shifts_per_root",
+                     "preamble_table", "roots", "n_roots", "srate", "n_fft", "n_cp", "n_seq",
+                     "n_total", "first_bin"):
+            assert getattr(jcfg, name) == getattr(tcfg, name), name
+        for u in tcfg.roots:
+            eq(j_prach._root_dft(u, tcfg.nzc), t_prach._root_dft(u, tcfg.nzc))
+        if n_prb == 6:
+            for idx in (0, 31, 63):
+                eq(j_prach.prach_gen(jcfg, idx), t_prach.prach_gen(tcfg, idx))

@@ -176,13 +176,15 @@ def test_block_code():
     rng = np.random.default_rng(6)
     for k in (3, 8, 11):
         bits = rng.integers(0, 2, (4, k)).astype(np.uint8)
-        for e in (32, 40, 96):
+        for e in (32, 40, 48, 96):
             eq(t_block.block_encode(bits, e), j_block.block_encode(bits, e))
-        llr = rng.standard_normal((4, 40)).astype(np.float32)
-        bj, mj = j_block.block_decode(jnp.asarray(llr), k)
-        bt, mt = t_block.block_decode(llr, k, device=CPU)
-        eq(bt, bj)
-        close(mt, mj, rtol=1e-5)
+        # 48: PUCCH format 3 folds its 48 LLRs onto the 32 positions
+        for e in (32, 40, 48):
+            llr = rng.standard_normal((4, e)).astype(np.float32)
+            bj, mj = j_block.block_decode(jnp.asarray(llr), k)
+            bt, mt = t_block.block_decode(llr, k, device=CPU)
+            eq(bt, bj)
+            close(mt, mj, rtol=1e-5)
 
 
 @pytest.mark.parametrize("name", [n for n in PLANS if n != "ack1_cqi30_full_width"])
@@ -319,11 +321,36 @@ def test_uplink_slice(name):
 
 
 def test_unported_ul_branches_raise():
-    tc = t_params.Cell(n_prb=6)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_ue.UeUl(tc).encode_pucch(None)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_enb.EnbUl(tc).decode_pucch(None, None)
-    pusch = t_pusch.Pusch(tc, t_ra.UlGrant(0, 6, 5, rv=2), SF_IDX)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pusch.decode(np.zeros((1, 14, 72), np.complex64), device=CPU)
+    """The branches that raised before PUCCH and HARQ were ported now agree
+    with the JAX package: UeUl.encode_pucch -> EnbUl.decode_pucch (format
+    1a, samples rtol 1e-4 and atol 1e-5 of their scale, the ACK equal, the
+    metric within 1e-4), and a PUSCH retransmission at rv 2 through
+    Pusch.decode (flags and bits equal, the TB decoded)."""
+    import srslte_tpu.phy.phch.pucch as j_pucch
+    import srslte_tpu_torch.phy.phch.pucch as t_pucch
+
+    jc, tc = cells(6)
+    jq = j_pucch.Pucch(jc, j_pucch.PucchConfig("1a", n_pucch=5), SF_IDX)
+    tq = t_pucch.Pucch(tc, t_pucch.PucchConfig("1a", n_pucch=5), SF_IDX)
+    sj = np.asarray(j_ue.UeUl(jc).encode_pucch(jq, ack_bits=(1,)))
+    st = t_ue.UeUl(tc).encode_pucch(tq, ack_bits=(1,), device=CPU)
+    close(st, sj)
+    rng = np.random.default_rng(21)
+    rx = (sj + crandn(rng, sj.shape, 0.05)).astype(np.complex64)
+    oj = j_enb.EnbUl(jc).decode_pucch(jnp.asarray(rx), jq)
+    ot = t_enb.EnbUl(tc).decode_pucch(torch.as_tensor(rx), tq, device=CPU)
+    eq(ot["ack"], oj["ack"])
+    assert ot["ack"].tolist() == [1]
+    close(ot["metric"], oj["metric"])
+
+    jp = j_pusch.Pusch(jc, j_ra.UlGrant(0, 6, 5, rv=2), SF_IDX)
+    tp = t_pusch.Pusch(tc, t_ra.UlGrant(0, 6, 5, rv=2), SF_IDX)
+    bits = rng.integers(0, 2, (2, tp.grant.tbs)).astype(np.uint8)
+    sj = np.asarray(j_ue.UeUl(jc).encode_pusch(jp, jnp.asarray(bits)))
+    rx = (sj + crandn(rng, sj.shape, 0.05 * np.abs(sj).std())).astype(np.complex64)
+    bj, okj, _ = j_enb.EnbUl(jc).decode_pusch(jnp.asarray(rx), jp)
+    bt, okt, _ = t_enb.EnbUl(tc).decode_pusch(torch.as_tensor(rx), tp, device=CPU)
+    eq(okt, okj)
+    assert okt.all()
+    eq(bt, bj)
+    eq(bt, bits)
