@@ -32,25 +32,38 @@ memory of one dispatch per path:
   N1 + ncce, an empty 1a resource, a positive SR on format 1, a format 2b
   with a wideband CQI and 2 ACK bits, a format 3 with 10 ACK bits) from the
   port's UeUl through EnbUl.decode_pucch; SRS over 96 PRB (Srs.estimate);
-  PRACH format 0 detection (prach_detect) with delays, and on noise alone.
+  PRACH format 0 detection (prach_detect) with delays, and on noise alone;
+- the blind receiver from a capture at 20 MHz (the example pair
+  srslte_tpu_torch.examples.pdsch_enodeb -> file -> pdsch_ue): four frames of
+  cell 301 (1 port, CFI 2, DCI 1A over all 100 PRB at mcs 27 for RNTI
+  0x1234) encoded on the card, written and read back through FileSink /
+  FileSource, then `receive` (cell search -> UeSync.find -> track_block in
+  blocks of 5 -> UeMib at subframe 0 -> per subframe fft_estimate, PCFICH,
+  PDCCH search, PDSCH) on the clean stream and on one with a delay, a CFO
+  and AWGN; timed whole and by stage, with its host synchronisations
+  counted.
 
 Exits non-zero on any failure, and when there is no CUDA device.  The line
 before the last is the card's name and power limit; the last line is
 `{"ok": true, "device": {...}}`.
 
 `python3 chip_smoke.py --profile` adds one DL and one UL dispatch, one HARQ
-round and one UL-control dispatch under `torch.profiler` and prints the
-device's busy share and the kernels that take most of its time.
+round, one UL-control dispatch and one blind receive under `torch.profiler`
+and prints the device's busy share and the kernels that take most of its
+time.
 """
 
 import contextlib
 import itertools
 import json
 import math
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -81,16 +94,21 @@ PACKED_BF16_OPS_PER_S = 67e12
 # The shape each path gives each kernel at its first, full-batch launch (the
 # turbo cascade's later phases run on the code blocks that still fail).
 SISO_SHAPES = {"dl": (BATCH * 11, 5824, 256, 32),  # 11 code blocks of K 5824 per subframe
+               "sf": (11, 5824, 256, 32),  # the blind receiver decodes one subframe at a time
                "ul": (BATCH * 12, 5952, 256, 32)}  # 12 code blocks of K 5952 per subframe
-VIT_SHAPES = {"dl": (BATCH * 18, 44),  # 18 PDCCH candidates, DCI 1A + CRC16
+VIT_SHAPES = {"pbch": (8, 40),  # PBCH: 4 frame phases x 2 port hypotheses, MIB + CRC16
+              "dl": (BATCH * 18, 44),  # 18 PDCCH candidates, DCI 1A + CRC16
               "ul": (BATCH, 38)}  # one long CQI per subframe: 30 bits + CRC8, tail-biting
-# The paths of the `kernels` line: (numerics, shape key); each kernel's
-# top-level numbers are those of the UL path in its numerics.  The DL HARQ
-# path's first launch is the DL shape (every code block of rv 0).
-PATHS = {"dl_f32": "dl", "dl_bf16": "dl", "ul_f32": "ul", "ul_bf16": "ul", "dl_harq": "dl"}
-KERNEL_PATHS = {"siso_windowed": ("dl_f32", "ul_f32", "dl_harq"),
+# The paths of the `kernels` line and the shape keys of their first SISO and
+# Viterbi launches; each kernel's top-level numbers are those of the UL path
+# in its numerics.  The DL HARQ path's first launch is the DL shape (every
+# code block of rv 0); the blind receiver's first Viterbi launch is the MIB
+# decode of subframe 0, its first SISO launch that subframe's PDSCH.
+PATHS = {"dl_f32": ("dl", "dl"), "dl_bf16": ("dl", "dl"), "ul_f32": ("ul", "ul"),
+         "ul_bf16": ("ul", "ul"), "dl_harq": ("dl", "dl"), "blind": ("sf", "pbch")}
+KERNEL_PATHS = {"siso_windowed": ("dl_f32", "ul_f32", "dl_harq", "blind"),
                 "siso_windowed_bf16": ("dl_bf16", "ul_bf16"),
-                "viterbi_decode": ("dl_f32", "dl_bf16", "ul_f32", "ul_bf16")}
+                "viterbi_decode": ("dl_f32", "dl_bf16", "ul_f32", "ul_bf16", "blind")}
 MAIN_PATH = {"siso_windowed": "ul_f32", "siso_windowed_bf16": "ul_bf16",
              "viterbi_decode": "ul_f32"}
 
@@ -123,6 +141,33 @@ PUCCH_SNR_DB = 3.0  # per occupied RE, one UE's RE at unit power
 SRS_SNR_DB = 10.0
 PRACH_SNR_DB = -10.0  # per sample, the preamble at unit power
 PRACH_MAX_DELAY = 1080  # samples, inside the N_cs window (38 lags = 1113)
+
+# Blind receive from a capture (phase 12): the JAX package's example pair
+# (examples/pdsch_enodeb.py -> capture file -> examples/pdsch_ue.py) at
+# 20 MHz: cell 301, 1 port, FDD, normal CP, CFI 2, DCI 1A over all 100 PRB
+# at mcs 27 for RNTI 0x1234, frames SFN 0-3
+BLIND_PRB = 100
+BLIND_CELL_ID = 301
+BLIND_RNTI = 0x1234
+BLIND_MCS = 27
+BLIND_BUCKET = (63776, 11, 5824)  # TBS, code blocks, K: the DL deployment's load
+BLIND_FRAMES = 4
+BLIND_SEED = 9  # the frames' bits (the same in every frame)
+BLIND_MAX_SF = 10 * BLIND_FRAMES  # more than the stream holds after the first lock
+# stream B: the impairments of tests/test_e2e_file.py at 20 MHz
+BLIND_DELAY = 1234  # samples of silence before the capture
+BLIND_CFO = 0.18  # subcarrier spacings
+BLIND_SNR_DB = 25.0  # AWGN this far below the stream's mean power per sample
+BLIND_NOISE_SEED = 1
+BLIND_TB_OK = 0.8  # share of stream B's TBs that must pass their CRC
+# TBs of stream A that the JAX package's receiver decodes (of 35), on the CPU,
+# on the same stream made by the port's eNB: `python tests/rehearse_blind_receive.py`.
+# It loses the first block of 5 subframes: its PSS-based CFO estimate is off
+# by about 0.002 subcarrier on this stream (the PDSCH shares the PSS
+# symbol), too much for mcs 27 until the CP estimate has halved it once.
+# Stream A's gate is that count, since a receiver that matches it cannot
+# decode every TB.
+BLIND_JAX_TB_OK_A = 30
 
 
 def check(cond, msg):
@@ -371,7 +416,7 @@ def phase_kernels():
 
     # --- SISO, 16 bits ----------------------------------------------------
     bf_err, bf_t = 0.0, {}
-    for (B, K, L, T) in (*edges, *SISO_SHAPES.values()):
+    for (B, K, L, T) in (*edges, SISO_SHAPES["dl"], SISO_SHAPES["ul"]):
         st = bf16_siso_state(rng, B, K)
         pi = torch.as_tensor(turbo.qpp_perm(K).astype(np.int32), device=dev)
         for emit_ext, perm in ext_perm_variants(pi):
@@ -395,8 +440,9 @@ def phase_kernels():
         del st
 
     # --- Viterbi ---------------------------------------------------------
-    # The DL's two DCI lengths with and without tail-biting, and the UL's
-    # long CQI as the path runs it (tail-biting); then the edges: one
+    # The DL's two DCI lengths with and without tail-biting, the UL's long
+    # CQI and the blind receiver's PBCH as the paths run them (tail-biting);
+    # then the edges: one
     # candidate, a ragged B, the one-bit code, one block exactly full of
     # candidates (PBCH's 40 bits), NB-IoT NPDSCH's longest (704 bits) and the
     # longest the kernel takes (its shared memory per block nearly full).
@@ -405,7 +451,8 @@ def phase_kernels():
     vit_path = {v: k for k, v in VIT_SHAPES.items()}
     both = (True, False)
     for nc, length, tb_settings in ((BATCH * 18, 44, both), (BATCH * 18, 27, both),
-                                    (*VIT_SHAPES["ul"], (True,)), (1, 44, both), (77, 44, both),
+                                    (*VIT_SHAPES["ul"], (True,)), (*VIT_SHAPES["pbch"], (True,)),
+                                    (1, 44, both), (77, 44, both),
                                     (3, 1, both), (viterbi_cuda.CANDIDATES_PER_BLOCK, 40, (True,)),
                                     (4, 704, both), (2, viterbi_cuda.max_length(True), (True,)),
                                     (2, viterbi_cuda.max_length(False), (False,))):
@@ -684,10 +731,23 @@ class UlChain:
 
 
 @contextlib.contextmanager
+def wrapped(hooks, wrap):
+    """While open, each function `owner.attr` of hooks ((owner, attr, name),
+    ...) is replaced by wrap(function, name): an entry point's own stages are
+    timed or counted, not a copy of its composition."""
+    saved = [(owner, attr, getattr(owner, attr)) for owner, attr, _ in hooks]
+    for (owner, attr, fn), (_, _, name) in zip(saved, hooks):
+        setattr(owner, attr, wrap(fn, name))
+    try:
+        yield [name for _, _, name in hooks]
+    finally:
+        for owner, attr, fn in saved:
+            setattr(owner, attr, fn)
+
+
 def stage_marks(stages):
     """While open, the stages that EnbUl.decode_pusch calls synchronise and
-    append (stage name, host time) to `stages` as they return: the real
-    entry point is timed, not a copy of its composition."""
+    append (stage name, host time) to `stages` as they return."""
     from srslte_tpu_torch.phy.chest.chest_ul import ChestUl
     from srslte_tpu_torch.phy.ofdm import Ofdm
     from srslte_tpu_torch.phy.phch import pusch
@@ -695,7 +755,6 @@ def stage_marks(stages):
     hooks = ((Ofdm, "rx_sf", "rx_sf"), (ChestUl, "estimate", "chest"),
              (pusch.Pusch, "soft_bits", "equalise_deprecode_demod"),
              (pusch.Pusch, "demux", "uci_demux_viterbi"), (pusch, "dlsch_decode", "dlsch_decode"))
-    saved = [(owner, attr, getattr(owner, attr)) for owner, attr, _ in hooks]
 
     def marked(fn, name):
         def call(*args, **kw):
@@ -705,13 +764,7 @@ def stage_marks(stages):
             return out
         return call
 
-    for (owner, attr, fn), (_, _, name) in zip(saved, hooks):
-        setattr(owner, attr, marked(fn, name))
-    try:
-        yield [name for _, _, name in hooks]
-    finally:
-        for owner, attr, fn in saved:
-            setattr(owner, attr, fn)
+    return wrapped(hooks, marked)
 
 
 def ul_score(out, bits, ack, cqi):
@@ -1163,6 +1216,231 @@ def phase_ul_control(profile=False):
                       total_ms + srs_ms + prach_ms)
 
 
+def blind_capture(cell, device=None):
+    """The capture: BLIND_FRAMES frames encoded on the card by the port's
+    example eNB (`make_frame`), written by `FileSink` to a file in a
+    temporary directory and read back by `FileSource`.  Returns (samples
+    [L] complex64 numpy, the bits of a frame [10, tbs], ms, file bytes)."""
+    from srslte_tpu_torch.examples.pdsch_enodeb import make_frame
+    from srslte_tpu_torch.phy.io import FileSink, FileSource
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "capture.bin")
+        sink = FileSink(path)
+        for sfn in range(BLIND_FRAMES):
+            s, bits = make_frame(cell, BLIND_RNTI, BLIND_MCS, sfn, BLIND_SEED, device)
+            sink.write(s.reshape(-1).cpu().numpy())
+        sink.close()
+        nbytes = os.path.getsize(path)
+        src = FileSource(path)
+        samples = src.read(10**9)
+        src.close()
+    return samples, bits, (time.perf_counter() - t0) * 1e3, nbytes
+
+
+def blind_impaired(a, fft_size):
+    """Stream B: BLIND_DELAY samples of silence, a CFO of BLIND_CFO
+    subcarriers and AWGN BLIND_SNR_DB below a's mean power per sample, drawn
+    on the host from BLIND_NOISE_SEED."""
+    rng = np.random.default_rng(BLIND_NOISE_SEED)
+    x = np.concatenate([np.zeros(BLIND_DELAY, np.complex64), a])
+    x = x * np.exp(2j * np.pi * BLIND_CFO * np.arange(len(x)) / fft_size)
+    sigma = np.sqrt(np.mean(np.abs(a) ** 2) / 10 ** (BLIND_SNR_DB / 10) / 2)
+    x = x + sigma * (rng.standard_normal(len(x)) + 1j * rng.standard_normal(len(x)))
+    return x.astype(np.complex64)
+
+
+def blind_receive(x, receive=None):
+    """`receive` of the port's example (or the one given) on stream x."""
+    if receive is None:
+        from srslte_tpu_torch.examples.pdsch_ue import receive
+    return receive(x, BLIND_PRB, BLIND_RNTI, max_sf=BLIND_MAX_SF)
+
+
+def blind_score(out, cell, dci, bits, name):
+    """Checks the cell, the MIB (n_prb, the PHICH fields sent, an SFN that
+    is a multiple of 4), that the receiver emitted every subframe after the
+    first lock (it stopped at the end of the stream), the DCI sent in every
+    subframe, and that every TB that passed its CRC equals the bits sent.
+    Returns (subframes, CFI right, TB ok, the CRC flags as a string of 0/1)."""
+    check(out["cell"] is not None and out["cell"].id == cell.id,
+          f"{name}: cell search found {out['cell']}")
+    mib = out["mib"]
+    check(mib is not None and (mib.n_prb, mib.phich_length, mib.phich_resources)
+          == (cell.n_prb, cell.phich_length, cell.phich_resources) and mib.sfn % 4 == 0,
+          f"{name}: MIB {mib}")
+    res = out["results"]
+    check(10 * (BLIND_FRAMES - 1) <= len(res) < BLIND_MAX_SF and len(res) % 5 == 0,
+          f"{name}: {len(res)} subframes emitted")
+    n_dci = sum(r["dci"] == dci for r in res)
+    check(n_dci == len(res), f"{name}: the DCI sent found in {n_dci}/{len(res)} subframes")
+    ok = [r for r in res if r["crc_ok"]]
+    for r in ok:
+        check(bool((r["bits"] == bits[r["sf_idx"]]).all()),
+              f"{name}: a TB that passed CRC in subframe {r['sf_idx']} differs from the bits sent")
+    crc = "".join(str(int(r["crc_ok"])) for r in res)
+    return len(res), sum(r["cfi"] == CFI for r in res), len(ok), crc
+
+
+def blind_hooks():
+    """The stages of `receive`, as (owner, attribute, name)."""
+    from srslte_tpu_torch.examples import pdsch_ue
+    from srslte_tpu_torch.phy.phch.pcfich import Pcfich
+    from srslte_tpu_torch.phy.phch.pdcch import Pdcch
+    from srslte_tpu_torch.phy.phch.pdsch import Pdsch
+    from srslte_tpu_torch.phy.ue.ue_dl import UeDl
+    from srslte_tpu_torch.phy.ue.ue_mib import UeMib
+    from srslte_tpu_torch.phy.ue.ue_sync import UeSync
+
+    return ((pdsch_ue, "cell_search", "cell_search"), (UeSync, "find", "find"),
+            (UeSync, "track_block", "track_block"), (UeMib, "decode", "mib"),
+            (UeDl, "fft_estimate", "fft_estimate"), (Pcfich, "decode", "pcfich"),
+            (Pdcch, "search", "pdcch_search"), (Pdsch, "decode", "pdsch_decode"))
+
+
+def call_timer(times):
+    """A `wrapped` wrap: each call synchronises before and after and appends
+    (name, ms) to `times`."""
+    def wrap(fn, name):
+        def call(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            times.append((name, (time.perf_counter() - t0) * 1e3))
+            return out
+        return call
+    return wrap
+
+
+def cfo_recorder(cfos):
+    """A `wrapped` wrap of UeSync.track_block: appends the CFO of the state
+    each call returns."""
+    def wrap(fn, name):
+        def call(*args, **kw):
+            sfs, state = fn(*args, **kw)
+            cfos.append(state.cfo)
+            return sfs, state
+        return call
+    return wrap
+
+
+def count_syncs(run, hooks):
+    """run() with the CUDA sync debug mode on "warn": each operation that
+    makes the host wait for the card (`.item()`, a copy to the host, ...)
+    raises one warning.  Returns (run's result, synchronising operations,
+    {stage name: those inside the stage})."""
+    per = {}
+
+    def is_sync(w):
+        return "synchroniz" in str(w.message)
+
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+
+        def counting(fn, name):
+            def call(*args, **kw):
+                n0 = len(seen)
+                out = fn(*args, **kw)
+                per[name] = per.get(name, 0) + sum(map(is_sync, seen[n0:]))
+                return out
+            return call
+
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with wrapped(hooks, counting):
+                out = run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum(map(is_sync, seen)), per
+
+
+def phase_blind(profile=False):
+    """Blind receive from a capture at 20 MHz (see the module docstring):
+    stream A clean, stream B impaired; the receive timed whole, by stage,
+    and with its host synchronisations counted.  Returns the kernel launch
+    counts of stream A's counted receive."""
+    from srslte_tpu_torch.phy.common.params import Cell
+    from srslte_tpu_torch.phy.phch.dci import Dci1A
+    from srslte_tpu_torch.phy.phch.pdsch import Pdsch
+    from srslte_tpu_torch.phy.ue.ue_sync import UeSync
+
+    cell = Cell(n_prb=BLIND_PRB, id=BLIND_CELL_ID, nof_ports=1)
+    dci = Dci1A(rb_start=0, l_crb=BLIND_PRB, mcs=BLIND_MCS)
+    cfg = Pdsch(cell, dci.grant(BLIND_PRB, BLIND_RNTI), 4, cfi=CFI, rnti=BLIND_RNTI).cfg
+    check((cfg.tbs, cfg.seg.C, cfg.seg.K1) == BLIND_BUCKET,
+          f"unexpected blind DL-SCH bucket {cfg.tbs, cfg.seg.C, cfg.seg.K1}")
+    a, bits, enc_ms, nbytes = blind_capture(cell)
+    L = BLIND_FRAMES * 10 * cell.ofdm.sf_len
+    check(a.shape == (L,) and a.dtype == np.complex64 and bool(np.isfinite(a).all()),
+          f"capture shape, type or values: {a.shape} {a.dtype}")
+    b = blind_impaired(a, cell.ofdm.symbol_sz)
+    print(f"[12 blind receive] capture: {BLIND_FRAMES} frames (SFN 0-{BLIND_FRAMES - 1}) of cell "
+          f"{BLIND_CELL_ID} encoded on the card by make_frame, through FileSink and FileSource "
+          f"({nbytes} bytes) in {enc_ms:.1f} ms; stream A {len(a)} samples, stream B {len(b)} "
+          f"samples (delay {BLIND_DELAY}, CFO {BLIND_CFO}, AWGN {BLIND_SNR_DB} dB below the "
+          f"mean power per sample)", flush=True)
+
+    _, first_ms, _ = timed(lambda: blind_receive(a))  # tables built and uploaded
+    cfos = []
+    reset_counts()
+    with wrapped(((UeSync, "track_block", "track_block"),), cfo_recorder(cfos)):
+        out_a, ms_a, peak_a = timed(lambda: blind_receive(a))
+    counts_a = read_counts()
+    for name in ("siso_windowed", "viterbi_decode"):
+        check(counts_a[name] > 0, f"the blind receive did not launch the {name} kernel")
+    n_a, cfi_a, ok_a, crc_a = blind_score(out_a, cell, dci, bits, "stream A")
+    check(cfi_a == n_a and ok_a >= BLIND_JAX_TB_OK_A,
+          f"stream A: CFI {cfi_a}, TB ok {ok_a} of {n_a} subframes (CRC {crc_a}; the JAX "
+          f"receiver: {BLIND_JAX_TB_OK_A})")
+    msps = len(a) / (ms_a * 1e-3) / 1e6
+    print(f"[12 blind receive, stream A] cell {out_a['cell'].id}, {out_a['mib']}; {n_a} subframes "
+          f"emitted: CFI {cfi_a}/{n_a}, DCI {n_a}/{n_a}, TB ok {ok_a}/{n_a} (>= "
+          f"{BLIND_JAX_TB_OK_A}, the JAX receiver's count, required), CRC per subframe {crc_a}, "
+          f"every passing TB equal to the bits sent; CFO after each block "
+          f"{[round(c, 5) for c in cfos]}; kernel launches {counts_a}", flush=True)
+    print(f"[12 blind receive, stream A] receive {ms_a:.3f} ms (first call, tables built: "
+          f"{first_ms:.3f} ms) = {msps:.2f} Msamples/s of the stream ({msps / REALTIME_MSPS:.3f} x "
+          f"real time at 100 PRB); peak device memory {peak_a}", flush=True)
+
+    times = []
+    with wrapped(blind_hooks(), call_timer(times)):
+        blind_receive(a)
+    by = {}
+    for name, ms in times:
+        by.setdefault(name, []).append(ms)
+    each = {n: ", ".join(f"{t:.3f}" for t in by.get(n, []))
+            for n in ("cell_search", "find", "track_block", "mib")}
+    med = ", ".join(f"{n} {float(np.median(by[n])):.3f}"
+                    for n in ("fft_estimate", "pcfich", "pdcch_search", "pdsch_decode"))
+    print(f"[12 blind receive, stream A] one more receive with a synchronise around each stage, "
+          f"ms: cell_search {each['cell_search']}; UeSync.find {each['find']}; track_block "
+          f"[{each['track_block']}]; UeMib.decode {each['mib']}; median per subframe: {med}",
+          flush=True)
+
+    _, n_sync, per = count_syncs(lambda: blind_receive(a), blind_hooks())
+    check(n_sync >= n_a, f"the sync debug mode saw {n_sync} synchronising operations "
+                         f"in {n_a} subframes")
+    print(f"[12 blind receive, stream A] host synchronisations (CUDA sync debug mode): {n_sync} "
+          f"in one receive = {n_sync / n_a:.2f} per emitted subframe; by stage {per}", flush=True)
+
+    reset_counts()
+    out_b, ms_b, peak_b = timed(lambda: blind_receive(b))
+    counts_b = read_counts()
+    n_b, cfi_b, ok_b, crc_b = blind_score(out_b, cell, dci, bits, "stream B")
+    check(ok_b >= BLIND_TB_OK * n_b,
+          f"stream B: TB ok {ok_b}/{n_b} below {BLIND_TB_OK:.0%} (CRC {crc_b})")
+    print(f"[12 blind receive, stream B] cell {out_b['cell'].id}, {out_b['mib']}; {n_b} subframes "
+          f"emitted: CFI {cfi_b}/{n_b}, DCI {n_b}/{n_b}, TB ok {ok_b}/{n_b} (>= "
+          f"{BLIND_TB_OK:.0%} required), CRC per subframe {crc_b}, every passing TB equal to "
+          f"the bits sent; receive "
+          f"{ms_b:.3f} ms; kernel launches {counts_b}; peak device memory {peak_b}", flush=True)
+    if profile:
+        phase_profile("blind receive, stream A", lambda: blind_receive(a), ms_a)
+    return counts_a
+
+
 def phase_profile(label, run, dispatch_ms):
     """One dispatch (`run()`) under torch.profiler: the device's kernel time
     by name, and its share of an unprofiled dispatch (`dispatch_ms`)."""
@@ -1231,7 +1509,9 @@ def main():
     phase_gates()
     counts_harq, _ = phase_harq(chain, np.random.default_rng(2025), profile)
     phase_ul_control(profile)
-    counts = {"dl_f32": counts_dl, "dl_bf16": counts_dl16, **counts_ul, "dl_harq": counts_harq}
+    counts_blind = phase_blind(profile)
+    counts = {"dl_f32": counts_dl, "dl_bf16": counts_dl16, **counts_ul, "dl_harq": counts_harq,
+              "blind": counts_blind}
     line = []
     for name, k in kernels.items():
         # per path: the launches of its one counted noisy dispatch, and the
@@ -1239,7 +1519,9 @@ def main():
         # the top-level numbers are those of the UL path in the kernel's
         # numerics (MAIN_PATH)
         times = k.pop("_times")
-        by_path = {p: {"launches": counts[p][name], **times[PATHS[p]]} for p in KERNEL_PATHS[name]}
+        key = 1 if name == "viterbi_decode" else 0
+        by_path = {p: {"launches": counts[p][name], **times[PATHS[p][key]]}
+                   for p in KERNEL_PATHS[name]}
         for p, v in by_path.items():
             check(v["launches"] > 0, f"{name} was not launched on the {p} path")
         line.append({"name": name, **k, "path": MAIN_PATH[name], **by_path[MAIN_PATH[name]],

@@ -10,8 +10,8 @@ matrix per (cell, port) bucket applied as one product
 [..., n_pilots] @ [n_pilots, nof_re], and everything vectorizes over leading
 batch dims (subframes, carriers, rx antennas).
 
-Ported: algorithm "average" (SRSRAN_ESTIMATOR_ALG_AVERAGE).  "interpolate" and
-"wiener" are ROADMAP queue A item 8.
+Ported: algorithm "average" (SRSRAN_ESTIMATOR_ALG_AVERAGE) for 1 and 2 ports.
+"interpolate", "wiener" and 4 ports are ROADMAP queue A item 8.
 """
 
 from __future__ import annotations
@@ -58,9 +58,9 @@ class ChestDL:
             raise NotImplementedError(
                 f"ChestDL algorithm {self.algorithm!r} is not ported yet "
                 "(ROADMAP queue A item 8: rest of DL)")
-        if self.cell.nof_ports != 1:
+        if self.cell.nof_ports > 2:
             raise NotImplementedError(
-                "ChestDL for 2 and 4 ports is not ported yet "
+                "ChestDL for 4 ports is not ported yet "
                 "(ROADMAP queue A item 8: rest of DL)")
 
     @functools.cached_property

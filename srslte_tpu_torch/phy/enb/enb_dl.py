@@ -3,7 +3,7 @@
 Reference behavior: lib/src/phy/enb/enb_dl.c: put_base (CRS/PSS/SSS, :344),
 put_pdcch (:372), put_pdsch (:404), gen_signal IFFT (:420).  Per-port RE grids
 are composed functionally (every `put_*` returns a new tensor) and modulated
-by the batched OFDM modulator.  PBCH and PHICH are not ported yet.
+by the batched OFDM modulator.  PHICH is not ported yet.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ from ..chest.refsignal_dl import put_crs
 from ..common.params import Cell
 from ..common.zc import pss_sequence
 from ..ofdm import Ofdm
+from ..phch.pbch import Mib, Pbch
 from ..phch.pcfich import Pcfich
 from ..phch.pdcch import Location, Pdcch
 from ..phch.pdsch import Pdsch
@@ -78,9 +79,9 @@ class EnbDl:
             grids[..., p, :, :] = put_crs(grids[..., p, :, :], self.cell, sf_idx, p)
         return self.put_pss_sss(grids, sf_idx)
 
-    def put_pbch(self, grids, mib):
-        raise NotImplementedError(
-            "PBCH is not ported yet (ROADMAP queue A item 7: blind receiver)")
+    def put_pbch(self, grids, mib: Mib, device=None):
+        """PBCH burst for frame phase mib.sfn%4 (subframe-0 grids only)."""
+        return Pbch(self.cell).encode_frame(mib, grids, device)
 
     def put_pcfich(self, grids, sf_idx: int, cfi: int, device=None):
         return Pcfich(self.cell, sf_idx).encode(grids, cfi, device)

@@ -1,1 +1,1 @@
-from .mimo import equalize_zf  # noqa: F401
+from .mimo import alamouti_decode_2tx, alamouti_encode_2tx, equalize_zf  # noqa: F401

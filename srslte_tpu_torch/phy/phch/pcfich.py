@@ -32,6 +32,11 @@ _CFI_CW = np.array([
 ], np.uint8)
 
 
+def cfi_codeword_bits(cell_id: int, sf_idx: int, cfi: int) -> np.ndarray:
+    """The scrambled 32-bit CFI codeword of a subframe: uint8 [32]."""
+    return _CFI_CW[cfi - 1] ^ gold_sequence(pcfich_cinit(sf_idx, cell_id), 32)
+
+
 @functools.lru_cache(maxsize=None)
 def _codebook_signed(cell_id: int, sf_idx: int) -> np.ndarray:
     """Scrambled +-1 codebook [3, 32] (for correlation decoding)."""
@@ -61,8 +66,8 @@ class Pcfich:
     def encode(self, grids, cfi: int, device=None):
         """Place the CFI codeword (a new tensor). grids [..., nports, nsym, nre]."""
         grids = as_tensor(grids, device)
-        c = gold_sequence(pcfich_cinit(self.sf_idx, self.cell.id), 32)
-        sym = modulate(as_tensor(_CFI_CW[cfi - 1] ^ c, grids.device), Modulation.QPSK)  # [16]
+        sym = modulate(as_tensor(cfi_codeword_bits(self.cell.id, self.sf_idx, cfi), grids.device),
+                       Modulation.QPSK)  # [16]
         o = self.cell.ofdm
         flat = grids.reshape(grids.shape[:-2] + (o.nsymb_sf * o.nof_re,)).clone()
         flat[..., 0, self._re_idx_t(grids.device)] = sym

@@ -27,6 +27,7 @@ import srslte_tpu_torch.phy.common.params as t_params
 import srslte_tpu_torch.phy.enb.enb_dl as t_enb
 import srslte_tpu_torch.phy.modem.modem as t_modem
 import srslte_tpu_torch.phy.phch.dci as t_dci
+import srslte_tpu_torch.phy.phch.pbch as t_pbch
 import srslte_tpu_torch.phy.phch.pcfich as t_pcfich
 import srslte_tpu_torch.phy.phch.pdcch as t_pdcch
 import srslte_tpu_torch.phy.phch.pdsch as t_pdsch
@@ -243,14 +244,16 @@ def test_pdcch_search(n_prb):
 
 def test_unported_branches_raise():
     cell2 = t_params.Cell(n_prb=6, id=1, nof_ports=2)
+    cell4 = t_params.Cell(n_prb=6, id=1, nof_ports=4)
     grant = t_dci.Dci1A(0, 6, 5).grant(6)
+    mib = t_pbch.Mib(6, "norm", "1", 0)
     for make in (lambda: t_pdsch.Pdsch(cell2, grant, 4, cfi=2),
                  lambda: t_pdcch.Pdcch(cell2, 2, 4),
                  lambda: t_pcfich.Pcfich(cell2, 4),
-                 lambda: t_ue.UeDl(cell2).chest,
+                 lambda: t_ue.UeDl(cell4).chest,
                  lambda: t_ue.UeDl(t_params.Cell(), chest_algorithm="wiener").chest,
                  lambda: t_enb.EnbDl(t_params.Cell()).put_phich(None, 0, None),
-                 lambda: t_enb.EnbDl(t_params.Cell()).put_pbch(None, None)):
+                 lambda: t_enb.EnbDl(cell4).put_pbch(None, mib)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             make()
 

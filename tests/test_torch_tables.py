@@ -27,6 +27,7 @@ import srslte_tpu.phy.modem.modem as j_modem
 import srslte_tpu.phy.ofdm as j_ofdm
 import srslte_tpu.phy.phch.dci as j_dci
 import srslte_tpu.phy.phch.dlsch as j_dlsch
+import srslte_tpu.phy.phch.pbch as j_pbch
 import srslte_tpu.phy.phch.pcfich as j_pcfich
 import srslte_tpu.phy.phch.pdcch as j_pdcch
 import srslte_tpu.phy.phch.pdsch as j_pdsch
@@ -35,6 +36,7 @@ import srslte_tpu.phy.phch.pucch as j_pucch
 import srslte_tpu.phy.phch.ra as j_ra
 import srslte_tpu.phy.phch.regs as j_regs
 import srslte_tpu.phy.phch.srs as j_srs
+import srslte_tpu.phy.sync.pss as j_pss
 import srslte_tpu.phy.sync.sss as j_sss
 import srslte_tpu_torch.phy.chest.chest_dl as t_chest
 import srslte_tpu_torch.phy.chest.refsignal_dl as t_rs
@@ -50,6 +52,7 @@ import srslte_tpu_torch.phy.modem.modem as t_modem
 import srslte_tpu_torch.phy.ofdm as t_ofdm
 import srslte_tpu_torch.phy.phch.dci as t_dci
 import srslte_tpu_torch.phy.phch.dlsch as t_dlsch
+import srslte_tpu_torch.phy.phch.pbch as t_pbch
 import srslte_tpu_torch.phy.phch.pcfich as t_pcfich
 import srslte_tpu_torch.phy.phch.pdcch as t_pdcch
 import srslte_tpu_torch.phy.phch.pdsch as t_pdsch
@@ -58,6 +61,7 @@ import srslte_tpu_torch.phy.phch.pucch as t_pucch
 import srslte_tpu_torch.phy.phch.ra as t_ra
 import srslte_tpu_torch.phy.phch.regs as t_regs
 import srslte_tpu_torch.phy.phch.srs as t_srs
+import srslte_tpu_torch.phy.sync.pss as t_pss
 import srslte_tpu_torch.phy.sync.sss as t_sss
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -82,6 +86,13 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     pat = re.compile(r"import jax|from jax|from srslte_tpu[ .]|import srslte_tpu( |$|\.)")
     files = sorted((ROOT / "srslte_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 30
+    # the blind receiver's modules and the example pair are among them
+    names = {str(f.relative_to(ROOT)) for f in files}
+    for mod in ("phy/io/filesource.py", "phy/sync/pss.py", "phy/sync/sync.py",
+                "phy/sync/refsignal_sync.py", "phy/sync/sfo.py", "phy/ue/ue_cell_search.py",
+                "phy/ue/ue_sync.py", "phy/ue/ue_mib.py", "phy/phch/pbch.py",
+                "examples/pdsch_enodeb.py", "examples/pdsch_ue.py"):
+        assert f"srslte_tpu_torch/{mod}" in names, mod
     hits = [f"{f.relative_to(ROOT)}:{i + 1}: {line}"
             for f in files for i, line in enumerate(f.read_text().splitlines())
             if pat.search(line)]
@@ -362,6 +373,37 @@ def test_sync_sequences():
                 eq(j_sss.sss_sequence(n_id_1, n_id_2, sf5), t_sss.sss_sequence(n_id_1, n_id_2, sf5))
     eq(j_zc.zadoff_chu(25, 63), t_zc.zadoff_chu(25, 63))
     eq(j_zc.zadoff_chu(7, 64, 1), t_zc.zadoff_chu(7, 64, 1))
+
+
+def test_sss_detect_tables():
+    eq(j_sss._nid1_table(), t_sss._nid1_table())
+    for n_sections in (1, 4):
+        for a, b in zip(j_sss._detect_tables(n_sections), t_sss._detect_tables(n_sections)):
+            eq(a, b)
+
+
+@pytest.mark.parametrize("n_prb", PRBS)
+def test_pss_replicas_and_filter_bank(n_prb):
+    n = t_params.symbol_sz(n_prb)
+    for n_id_2 in range(3):
+        eq(j_pss.pss_time(n_id_2, n), t_pss.pss_time(n_id_2, n))
+    conv_len = 2 * n if n_prb == 100 else 8 * n
+    eq(j_pss._pss_filter_bank(n, conv_len), t_pss._pss_filter_bank(n, conv_len))
+
+
+# ------------------------------------------------------------------- pbch
+@pytest.mark.parametrize("cp", ["norm", "ext"])
+@pytest.mark.parametrize("n_prb", PRBS)
+def test_pbch_tables(n_prb, cp):
+    for cid in (0, 1, 2, 503):
+        jc, tc = cells(n_prb, cid, cp=cp)
+        eq(j_pbch.pbch_re_indices(jc), t_pbch.pbch_re_indices(tc))
+        assert j_pbch.e_total(jc) == t_pbch.e_total(tc)
+        e = t_pbch.e_total(tc)
+        eq(j_pbch._scramble_signed(cid, e), t_pbch._scramble_signed(cid, e))
+    for p in (1, 2, 4):
+        eq(j_pbch.ant_mask(p), t_pbch.ant_mask(p))
+    assert (j_pbch.MIB_LEN, j_pbch.PAYLOAD) == (t_pbch.MIB_LEN, t_pbch.PAYLOAD)
 
 
 # ------------------------------------------------------------------ dlsch
