@@ -4,10 +4,10 @@
 Builds the hand-written CUDA kernels from `srslte_tpu_torch/csrc/` (the
 windowed turbo SISO in float32 and in 16 bits, and the Viterbi decoder),
 holds each against its plain PyTorch version on the card (both SISOs by
-value, the Viterbi bit for bit) and times it against its bound, then drives
-the port's two paths through the entry points a user would call, each at its
-deployment's full width, in batches of 128 subframes, with the peak device
-memory of one dispatch per path:
+value, the Viterbi bit for bit) at the shape each path gives it and times it
+against its bound, then drives the port's paths through the entry points a
+user would call, each at its deployment's full width, in batches of 128
+subframes, with the peak device memory of one dispatch per path:
 
 - the 20 MHz UE downlink receive chain at the srsUE cc_worker scope:
   eNB encode (stimulus) -> AWGN -> UeDl.fft_estimate -> Pcfich.decode ->
@@ -41,16 +41,32 @@ memory of one dispatch per path:
   blocks of 5 -> UeMib at subframe 0 -> per subframe fft_estimate, PCFICH,
   PDCCH search, PDSCH) on the clean stream and on one with a delay, a CFO
   and AWGN; timed whole and by stage, with its host synchronisations
-  counted.
+  counted;
+- (phase 13, the main path of the latest slice) the 2x2 spatial-
+  multiplexing DL at 20 MHz: Cell(100 PRB, id 1, 2 ports), CFI 2, subframe
+  4, RNTI 0x46; the eNB puts CRS, PCFICH, a random ACK / NACK / off PHICH
+  pattern, DCI 2 (TM4, precoding information 2) or 2A (TM3) at the first
+  L=8 UE-specific location and both TBs (mcs 27 over all 100 PRB) through
+  PdschSm.encode2; a fixed 2x2 channel and AWGN; the UE runs
+  UeDl.fft_estimate on both rx antennas, PCFICH, the blind search and PHICH
+  on rx 0, rebuilds the grants and the pmi from the DCI it read back, and
+  PdschSm.decode2 on both antennas; clean and at SM_SNR_DB, timed, staged,
+  with its host synchronisations counted;
+- (phase 14) the 4-port cell: PdschSm4 with pmi 0 and with CDD over a 4x4
+  channel, the 4-port control channels, and the 4-port PBCH;
+- (phase 15) the rest of the DL at 100 PRB: the "interpolate" and "wiener"
+  estimates on phase 13's stimulus, PMCH on an extended-CP cell, the DwPTS
+  PDSCH of a TDD special subframe and the extended-duration PHICH.
 
 Exits non-zero on any failure, and when there is no CUDA device.  The line
 before the last is the card's name and power limit; the last line is
 `{"ok": true, "device": {...}}`.
 
 `python3 chip_smoke.py --profile` adds one DL and one UL dispatch, one HARQ
-round, one UL-control dispatch and one blind receive under `torch.profiler`
-and prints the device's busy share and the kernels that take most of its
-time.
+round, one UL-control dispatch, one blind receive and one 2x2 and one 4x4
+SM dispatch under `torch.profiler` and prints the device's busy share and
+the kernels that take most of its time.  The line before the kernels line
+gives each phase's wall time and the total.
 """
 
 import contextlib
@@ -95,22 +111,56 @@ PACKED_BF16_OPS_PER_S = 67e12
 # turbo cascade's later phases run on the code blocks that still fail).
 SISO_SHAPES = {"dl": (BATCH * 11, 5824, 256, 32),  # 11 code blocks of K 5824 per subframe
                "sf": (11, 5824, 256, 32),  # the blind receiver decodes one subframe at a time
-               "ul": (BATCH * 12, 5952, 256, 32)}  # 12 code blocks of K 5952 per subframe
+               "ul": (BATCH * 12, 5952, 256, 32),  # 12 code blocks of K 5952 per subframe
+               "pmch": (BATCH * 7, 5632, 256, 32),  # PMCH mcs 20: 7 code blocks of K 5632
+               "dwpts": (BATCH * 8, 5888, 256, 32)}  # DwPTS mcs 27, 75 PRB of TBS: 8 of K 5888
 VIT_SHAPES = {"pbch": (8, 40),  # PBCH: 4 frame phases x 2 port hypotheses, MIB + CRC16
               "dl": (BATCH * 18, 44),  # 18 PDCCH candidates, DCI 1A + CRC16
-              "ul": (BATCH, 38)}  # one long CQI per subframe: 30 bits + CRC8, tail-biting
+              "ul": (BATCH, 38),  # one long CQI per subframe: 30 bits + CRC8, tail-biting
+              "dci2": (BATCH * 18, 67),  # DCI 2 at 2 ports (51 bits) + CRC16
+              "dci2a": (BATCH * 18, 64),  # DCI 2A at 2 ports (48 bits) + CRC16
+              "dci2_4p": (BATCH * 20, 70),  # DCI 2 at 4 ports (54 bits), 20 candidates of 39 CCEs
+              "pbch4": (12, 40)}  # 4-port PBCH: 4 frame phases x 3 port hypotheses
 # The paths of the `kernels` line and the shape keys of their first SISO and
-# Viterbi launches; each kernel's top-level numbers are those of the UL path
-# in its numerics.  The DL HARQ path's first launch is the DL shape (every
-# code block of rv 0); the blind receiver's first Viterbi launch is the MIB
-# decode of subframe 0, its first SISO launch that subframe's PDSCH.
+# Viterbi launches; each kernel's top-level numbers are those of its main
+# path: the 2x2 SM DL (TM4) for the float32 SISO and the Viterbi, the UL for
+# the 16-bit SISO, which only the DL and UL paths run.  The DL HARQ path's
+# first launch is the DL shape (every code block of rv 0); the blind
+# receiver's first Viterbi launch is the MIB decode of subframe 0, its first
+# SISO launch that subframe's PDSCH; an SM path's first SISO launch is
+# codeword 0 (decode2 decodes each codeword as its own batch, as the C
+# library does), and each codeword of the 2x2 and the 4x4 cell has the DL's
+# 11 code blocks of K 5824.  PMCH and DwPTS run no PDCCH.
 PATHS = {"dl_f32": ("dl", "dl"), "dl_bf16": ("dl", "dl"), "ul_f32": ("ul", "ul"),
-         "ul_bf16": ("ul", "ul"), "dl_harq": ("dl", "dl"), "blind": ("sf", "pbch")}
-KERNEL_PATHS = {"siso_windowed": ("dl_f32", "ul_f32", "dl_harq", "blind"),
+         "ul_bf16": ("ul", "ul"), "dl_harq": ("dl", "dl"), "blind": ("sf", "pbch"),
+         "sm2_tm4": ("dl", "dci2"), "sm2_tm3": ("dl", "dci2a"), "sm4": ("dl", "dci2_4p"),
+         "pmch": ("pmch", None), "dwpts": ("dwpts", None)}
+KERNEL_PATHS = {"siso_windowed": ("dl_f32", "ul_f32", "dl_harq", "blind", "sm2_tm4", "sm2_tm3",
+                                  "sm4", "pmch", "dwpts"),
                 "siso_windowed_bf16": ("dl_bf16", "ul_bf16"),
-                "viterbi_decode": ("dl_f32", "dl_bf16", "ul_f32", "ul_bf16", "blind")}
-MAIN_PATH = {"siso_windowed": "ul_f32", "siso_windowed_bf16": "ul_bf16",
-             "viterbi_decode": "ul_f32"}
+                "viterbi_decode": ("dl_f32", "dl_bf16", "ul_f32", "ul_bf16", "blind", "sm2_tm4",
+                                   "sm2_tm3", "sm4")}
+MAIN_PATH = {"siso_windowed": "sm2_tm4", "siso_windowed_bf16": "ul_bf16",
+             "viterbi_decode": "sm2_tm4"}
+
+# The spatial-multiplexing DL (phases 13-15, `SmChain`): both TBs at mcs 27
+# over all 25 RBGs; DCI 2 at 2 ports carries precoding information 2, TM4
+# codebook entry pinfo - 1 = 1 (tests/test_dci_formats.py:266-300)
+SM_MCS = (27, 27)
+SM_PINFO = 2
+SM_H2 = ((1.0, 0.3 + 0.2j), (0.25 - 0.3j, 0.9))  # tests/test_dci_formats.py:303
+SM4_H_SEED = 2  # 4x4: complex Gaussian / sqrt(2) + 2 I, tests/test_mimo4.py:41
+SM_SEED = 43
+# The lowest whole dB at which the JAX package's PdschSm.decode2 (PdschSm4
+# for the 4x4) decodes >= 95 % of the TBs of 16 subframes of this stimulus
+# on the CPU (`python tests/rehearse_sm.py`): TM4 21 (at 20 dB codeword 1
+# decodes 0/16), TM3 19, 4x4 pmi 0 17, 4x4 CDD 16; each phase runs at the
+# highest of its deployments'.  With the "interpolate" estimate the JAX
+# package decodes codeword 1 of the TM4 stimulus in 0/16 subframes at 21 dB
+# and needs 24: phase 15 runs it at both.
+SM_SNR_DB = 21.0
+SM4_SNR_DB = 17.0
+SM_INTERP_SNR_DB = 24.0
 
 
 # DL HARQ (phase 10): the DL deployment above at an SNR where rv 0 alone
@@ -441,8 +491,8 @@ def phase_kernels():
 
     # --- Viterbi ---------------------------------------------------------
     # The DL's two DCI lengths with and without tail-biting, the UL's long
-    # CQI and the blind receiver's PBCH as the paths run them (tail-biting);
-    # then the edges: one
+    # CQI, the blind receiver's PBCH, the SM paths' DCI 2 / 2A lengths and
+    # the 4-port PBCH as the paths run them (tail-biting); then the edges: one
     # candidate, a ragged B, the one-bit code, one block exactly full of
     # candidates (PBCH's 40 bits), NB-IoT NPDSCH's longest (704 bits) and the
     # longest the kernel takes (its shared memory per block nearly full).
@@ -452,6 +502,9 @@ def phase_kernels():
     both = (True, False)
     for nc, length, tb_settings in ((BATCH * 18, 44, both), (BATCH * 18, 27, both),
                                     (*VIT_SHAPES["ul"], (True,)), (*VIT_SHAPES["pbch"], (True,)),
+                                    (*VIT_SHAPES["dci2"], (True,)), (*VIT_SHAPES["dci2a"], (True,)),
+                                    (*VIT_SHAPES["dci2_4p"], (True,)),
+                                    (*VIT_SHAPES["pbch4"], (True,)),
                                     (1, 44, both), (77, 44, both),
                                     (3, 1, both), (viterbi_cuda.CANDIDATES_PER_BLOCK, 40, (True,)),
                                     (4, 704, both), (2, viterbi_cuda.max_length(True), (True,)),
@@ -745,16 +798,19 @@ def wrapped(hooks, wrap):
             setattr(owner, attr, fn)
 
 
-def stage_marks(stages):
-    """While open, the stages that EnbUl.decode_pusch calls synchronise and
-    append (stage name, host time) to `stages` as they return."""
+def stage_marks(stages, hooks=None):
+    """While open, the stages that EnbUl.decode_pusch calls (or the functions
+    of `hooks`) synchronise and append (stage name, host time) to `stages`
+    as they return."""
     from srslte_tpu_torch.phy.chest.chest_ul import ChestUl
     from srslte_tpu_torch.phy.ofdm import Ofdm
     from srslte_tpu_torch.phy.phch import pusch
 
-    hooks = ((Ofdm, "rx_sf", "rx_sf"), (ChestUl, "estimate", "chest"),
-             (pusch.Pusch, "soft_bits", "equalise_deprecode_demod"),
-             (pusch.Pusch, "demux", "uci_demux_viterbi"), (pusch, "dlsch_decode", "dlsch_decode"))
+    if hooks is None:
+        hooks = ((Ofdm, "rx_sf", "rx_sf"), (ChestUl, "estimate", "chest"),
+                 (pusch.Pusch, "soft_bits", "equalise_deprecode_demod"),
+                 (pusch.Pusch, "demux", "uci_demux_viterbi"),
+                 (pusch, "dlsch_decode", "dlsch_decode"))
 
     def marked(fn, name):
         def call(*args, **kw):
@@ -1441,6 +1497,409 @@ def phase_blind(profile=False):
     return counts_a
 
 
+# ------------------------------------------------------- spatial multiplexing
+class SmChain:
+    """The spatial-multiplexing deployment of phases 13-15 and the two sides
+    of its path: `Cell(n_prb=100, id=1, nof_ports=ports)`, FDD, normal CP,
+    PHICH Ng 1 (normal duration unless `phich_length="ext"`), CFI `cfi`,
+    subframe 4, RNTI 0x46; PCFICH, a random ACK / NACK / off pattern on every
+    PHICH sequence, DCI 2 (`tm` 4) or 2A (`tm` 3) over all 25 RBGs at mcs
+    (27, 27) at the first L=8 UE-specific location, and both TBs through
+    `PdschSm` (2 ports) or `PdschSm4` (4 ports, `pmi4` the path's own: the
+    JAX package maps no 4-port TPMI); the channel `SM_H2` or the 4x4 of
+    `SM4_H_SEED`, one rx antenna per port.  `device` and `chest` let
+    tests/rehearse_sm.py build the same stimulus on the CPU."""
+
+    def __init__(self, ports=2, tm=4, pmi4=0, device="cuda", chest="average", cfi=CFI,
+                 phich_length="norm"):
+        from srslte_tpu_torch.phy.common.params import Cell
+        from srslte_tpu_torch.phy.enb.enb_dl import EnbDl
+        from srslte_tpu_torch.phy.phch import dci as D
+        from srslte_tpu_torch.phy.phch.pcfich import Pcfich
+        from srslte_tpu_torch.phy.phch.pdcch import (Pdcch, common_locations, rnti_mask,
+                                                     ue_locations)
+        from srslte_tpu_torch.phy.phch.phich import Phich
+        from srslte_tpu_torch.phy.ue.ue_dl import UeDl
+
+        self.ports, self.tm, self.pmi4, self.cfi, self.device = ports, tm, pmi4, cfi, device
+        self.cell = Cell(n_prb=100, id=1, nof_ports=ports, phich_length=phich_length)
+        fmt2a = ports == 2 and tm == 3
+        self.pack = D.pack_format2a if fmt2a else D.pack_format2
+        self.unpack = D.unpack_format2a if fmt2a else D.unpack_format2
+        self.dci = D.Dci2(rbg_bitmask=(1 << 25) - 1, mcs=SM_MCS,
+                          pinfo=SM_PINFO if (ports == 2 and tm == 4) else 0)
+        self.dci_bits = self.pack(self.dci, 100, ports)
+        self.dci_len = len(self.dci_bits)
+        self.pdsch = self.pdsch_for(self.dci)
+        self.scheduled = {self.dci: self.pdsch}  # the PDSCH of each DCI read back
+        self.enb = EnbDl(self.cell)
+        self.ue = UeDl(self.cell, chest_algorithm=chest)
+        self.pcfich = Pcfich(self.cell, SF_IDX)
+        self.phich = Phich(self.cell, SF_IDX)
+        self.pd = Pdcch(self.cell, cfi, SF_IDX)
+        locs = ue_locations(self.pd.n_cce, RNTI, SF_IDX)
+        self.tx_loc = [l for l in locs if l.L == 8][0]
+        locs += [l for l in common_locations(self.pd.n_cce) if l not in locs]
+        groups = {}
+        for l in locs:
+            groups.setdefault(l.L, []).append(l)
+        self.groups = tuple(tuple(g) for g in groups.values())
+        self.n_cand = len(locs)
+        self.mask = torch.as_tensor(rnti_mask(RNTI), device=device)
+        self.dci_bits_t = torch.as_tensor(self.dci_bits, device=device)
+        if ports == 2:
+            h = np.array(SM_H2, np.complex64)
+        else:
+            rng = np.random.default_rng(SM4_H_SEED)
+            h = ((rng.standard_normal((4, 4)) + 1j * rng.standard_normal((4, 4))) / np.sqrt(2)
+                 + 2 * np.eye(4)).astype(np.complex64)
+        self.h = torch.as_tensor(h, device=device)
+        for q in range(2):
+            cfg = self.pdsch.cfg_q(q)
+            check((cfg.tbs, cfg.seg.C, cfg.seg.K1) == (63776, 11, 5824),
+                  f"unexpected SM DL-SCH bucket {cfg.tbs, cfg.seg.C, cfg.seg.K1}")
+
+    def pdsch_for(self, dci):
+        """The PDSCH a DCI schedules: both grants; at 2 ports the pmi from the
+        precoding information (TM4: pinfo - 1), none for TM3."""
+        from srslte_tpu_torch.phy.phch.pdsch import PdschSm, PdschSm4
+
+        g0, g1 = dci.grants(100)
+        if self.ports == 2:
+            pmi = dci.pinfo - 1 if self.tm == 4 and dci.pinfo else None
+            return PdschSm(self.cell, g0, SF_IDX, cfi=self.cfi, rnti=RNTI, pmi=pmi, grant1=g1)
+        return PdschSm4(self.cell, g0, SF_IDX, cfi=self.cfi, rnti=RNTI, pmi=self.pmi4, grant1=g1)
+
+    def grids(self, seed, batch=None):
+        """batch (BATCH) subframes of the eNB's grids: ((bits0, bits1, ack),
+        grids [B, ports, nsym, nre]); ack [B, ngroups, 8] in {-1: off, 0, 1}."""
+        batch = batch or BATCH
+        rng = np.random.default_rng(seed)
+        dev = self.device
+        tbs = self.pdsch.cfg.tbs
+        bits = torch.as_tensor(rng.integers(0, 2, (2, batch, tbs), dtype=np.uint8), device=dev)
+        ack = torch.as_tensor(rng.integers(-1, 2, (batch, self.phich.ngroups, 8)), device=dev)
+        enb = self.enb
+        g = enb.put_base(enb.empty_grids((batch,), device=dev), SF_IDX)
+        g = enb.put_pcfich(g, SF_IDX, self.cfi)
+        g = enb.put_phich(g, SF_IDX, ack)
+        g = enb.put_pdcch(g, SF_IDX, self.cfi, self.dci_bits, RNTI, self.tx_loc)
+        return (bits[0], bits[1], ack), self.pdsch.encode2(bits[0], bits[1], g)
+
+    def encode(self, seed, batch=None):
+        """((bits0, bits1, ack), rx [B, nrx, sf_len]): the grids through
+        gen_signal and the channel matrix, before noise."""
+        sent, g = self.grids(seed, batch)
+        return sent, torch.einsum("rp,bps->brs", self.h, self.enb.gen_signal(g))
+
+    def receive(self, rx, snr_db, gen, stages=None):
+        """One dispatch of the UE side on a batch: AWGN (drawn anew from gen,
+        none for snr_db None) -> UeDl.fft_estimate on every rx antenna ->
+        Pcfich.decode, the PDCCH blind search and Phich.decode on rx 0 (the
+        reference's control channels read one antenna) -> the DCI read back
+        and the PDSCH rebuilt from it -> decode2 on every rx antenna with rx
+        0's noise.  Returns a dict of device tensors and the DCI.  A
+        subframe's DCI is right when one of its candidates carries the
+        payload sent (as `Chain`; an L=8 DCI also decodes at L=4 on its first
+        CCEs); a false hit is a candidate that passes its CRC with another
+        payload."""
+        def mark(name):
+            if stages is not None:
+                torch.cuda.synchronize()
+                stages.append((name, time.perf_counter()))
+
+        mark("start")
+        rx = UlChain.noisy(rx, snr_db, gen)
+        mark("awgn")
+        grid, ce, info = self.ue.fft_estimate(rx, SF_IDX)  # [B, nrx, ...]
+        mark("fft_estimate")
+        g0, c0 = grid[:, 0], ce[:, 0]
+        cfi, _ = self.pcfich.decode(g0, c0)
+        mark("pcfich")
+        ok, cand = self.pd._decode_mixed_traced(g0, c0, self.groups, self.dci_len, self.mask)
+        # every candidate that passed its CRC, read back in one copy; the
+        # DCI the most hits carry schedules the batch's PDSCH (a false hit,
+        # a CRC16 passing on noise, is rare and carries another payload)
+        both = torch.cat([ok[..., None].to(torch.uint8), cand], dim=-1).cpu().numpy()
+        hits = both[..., 1:][both[..., 0] == 1]
+        check(len(hits) > 0, "no DCI found in a dispatch")
+        payloads, n = np.unique(hits, axis=0, return_counts=True)
+        dci = self.unpack(payloads[np.argmax(n)], 100, self.ports)
+        if dci not in self.scheduled:
+            self.scheduled[dci] = self.pdsch_for(dci)
+        pdsch = self.scheduled[dci]
+        mark("pdcch_search")
+        hi, _ = self.phich.decode(g0, c0)
+        mark("phich")
+        (b0, ok0), (b1, ok1) = pdsch.decode2(grid, ce, info["noise"][:, 0])
+        mark("pdsch_decode2")
+        right = ok & torch.all(cand == self.dci_bits_t, dim=-1)
+        return {"bits": (b0, b1), "tb_ok": (ok0, ok1), "cfi_ok": cfi == self.cfi,
+                "dci_ok": torch.any(right, dim=-1), "hi": hi, "dci": dci,
+                "false_hits": ok & ~right}
+
+    def decode(self, rx, snr_db, gen, siso_dtype=F32):
+        """`receive` with the interface of `counted_dispatch`."""
+        return self.receive(rx, snr_db, gen)
+
+
+def sm_score(out, sent, label, dci=None):
+    """(CFI right, DCI right, HI right share over the sent HIs, TB ok per
+    codeword) of an SM dispatch; fails if the DCI read back is not the one
+    sent or a TB that passed its CRC differs from the bits sent."""
+    bits0, bits1, ack = sent
+    check(dci is None or out["dci"] == dci, f"{label}: the DCI read back is {out['dci']}")
+    on = ack >= 0
+    hi_ok = int(((out["hi"] == (ack == 1)) & on).sum()) / int(on.sum())
+    tb = []
+    for q, bits in enumerate((bits0, bits1)):
+        dec, ok = out["bits"][q], out["tb_ok"][q]
+        check(dec.shape == bits.shape and dec.dtype == torch.uint8, f"{label}: TB shape or type")
+        check(bool((dec[ok] == bits[ok]).all()),
+              f"{label}: a TB of codeword {q} that passed CRC differs from the bits sent")
+        tb.append(int(ok.sum()))
+    return int(out["cfi_ok"].sum()), int(out["dci_ok"].sum()), hi_ok, tb
+
+
+def sm_gates(score, n, label, noisy):
+    """Clean: every CFI, DCI, HI and TB right.  Noisy: every CFI and DCI,
+    HI >= 99 %, TB >= 80 % on each codeword."""
+    cfi, dci, hi, tb = score
+    check(cfi == n and dci == n, f"{label}: CFI {cfi}/{n}, DCI {dci}/{n}")
+    if noisy:
+        check(hi >= 0.99 and min(tb) >= 0.8 * n, f"{label}: HI {hi:.4f}, TB ok {tb} of {n}")
+    else:
+        check(hi == 1.0 and tb == [n, n], f"{label}: HI {hi:.4f}, TB ok {tb} of {n}")
+
+
+def sm_hooks():
+    """The stages of `SmChain.receive` for the sync count, as (owner,
+    attribute, name)."""
+    from srslte_tpu_torch.phy.phch.pcfich import Pcfich
+    from srslte_tpu_torch.phy.phch.pdcch import Pdcch
+    from srslte_tpu_torch.phy.phch.pdsch import PdschSm
+    from srslte_tpu_torch.phy.phch.phich import Phich
+    from srslte_tpu_torch.phy.ue.ue_dl import UeDl
+
+    return ((UeDl, "fft_estimate", "fft_estimate"), (Pcfich, "decode", "pcfich"),
+            (Pdcch, "_decode_mixed_traced", "pdcch_search"), (Phich, "decode", "phich"),
+            (PdschSm, "decode2", "pdsch_decode2"))
+
+
+def phase_sm(label, chain, snr_db, seed, timed_path=True, profile=False):
+    """One SM deployment: a clean counted dispatch, a noisy counted dispatch
+    at snr_db with its peak memory, then (timed_path) N_TIMED timed
+    dispatches, one with a synchronise after each stage (and the 4-layer
+    solve apart) and one with its host synchronisations counted.  Returns
+    (the noisy dispatch's launch counts, the median ms or None, the
+    stimulus)."""
+    t0 = time.perf_counter()
+    sent, rx = chain.encode(seed)
+    torch.cuda.synchronize()
+    check(rx.shape == (BATCH, chain.ports, 30720) and bool(torch.isfinite(
+        torch.view_as_real(rx)).all()), f"{label}: stimulus shape or values")
+    print(f"[{label}] stimulus: {BATCH} subframes encoded on the card in "
+          f"{time.perf_counter() - t0:.1f} s; DCI {chain.dci_len} bits at {chain.tx_loc}, "
+          f"{chain.n_cand} PDCCH candidates, {chain.phich.ngroups} PHICH groups", flush=True)
+    out, counts, _ = counted_dispatch(chain, rx, None, None)
+    score = sm_score(out, sent, label, chain.dci)
+    sm_gates(score, BATCH, f"{label}, clean", noisy=False)
+    print(f"[{label}, clean] {BATCH} subframes: every CFI = {chain.cfi}, DCI read back equal to "
+          f"the one sent ({out['dci']}), every HI right, both TBs pass CRC and equal the bits "
+          f"sent; launches {counts}", flush=True)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    out, counts, mem = counted_dispatch(chain, rx, snr_db, gen)
+    score = sm_score(out, sent, label, chain.dci)
+    sm_gates(score, BATCH, f"{label}, {snr_db} dB", noisy=True)
+    print(f"[{label}, {snr_db} dB] first dispatch: CFI {score[0]}/{BATCH}, DCI {score[1]}/{BATCH} "
+          f"({int(out['false_hits'].sum())} false CRC hits among {BATCH * chain.n_cand} "
+          f"candidates), "
+          f"HI right {score[2]:.4f} of the sent ones, TB ok {score[3][0]}/{BATCH} and "
+          f"{score[3][1]}/{BATCH}; kernel launches {counts}; peak device memory {mem[0]:.1f} MB, "
+          f"{mem[1]:.1f} MB above what was allocated before it", flush=True)
+    if not timed_path:
+        return counts, None, (sent, rx)
+    times, tb = [], list(score[3])
+    for _ in range(N_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = chain.receive(rx, snr_db, gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        sc = sm_score(out, sent, label, chain.dci)
+        check(sc[0] == BATCH and sc[1] == BATCH, f"{label}: CFI or DCI lost in a timed dispatch")
+        tb = [a + b for a, b in zip(tb, sc[3])]
+    ms = float(np.median(times))
+    n = BATCH * (N_TIMED + 1)
+    print(f"[{label}, {snr_db} dB] {N_TIMED} timed dispatches of {BATCH} subframes: "
+          f"{[round(t, 3) for t in times]} ms, median {ms:.3f} ms/dispatch = "
+          f"{BATCH / (ms * 1e-3):.1f} subframes/s ({BATCH / ms:.2f} x real time: {BATCH} "
+          f"subframes are {BATCH} ms of air time); TB BLER per codeword over {n} TBs "
+          f"{[round(1 - t / n, 4) for t in tb]}", flush=True)
+    stages = []
+    hooks = ((type(chain.pdsch), "soft_bits2", "mmse_demod"),)
+    with stage_marks(stages, hooks):
+        chain.receive(rx, snr_db, gen, stages=stages)
+    stages.sort(key=lambda st: st[1])
+    split = ", ".join(f"{nm} {(t - stages[i][1]) * 1e3:.2f}"
+                      for i, (nm, t) in enumerate(stages[1:]))
+    print(f"[{label}, {snr_db} dB] one more dispatch with a synchronise after each stage, ms "
+          f"(pdsch_decode2 after mmse_demod is the two codewords' DL-SCH decode): {split}",
+          flush=True)
+    _, n_sync, per = count_syncs(lambda: chain.receive(rx, snr_db, gen), sm_hooks())
+    print(f"[{label}, {snr_db} dB] host synchronisations (CUDA sync debug mode): {n_sync} in one "
+          f"dispatch = {n_sync / BATCH:.3f} per subframe; by stage {per}", flush=True)
+    if profile:
+        phase_profile(label, lambda: chain.receive(rx, snr_db, gen), ms)
+    return counts, ms, (sent, rx)
+
+
+def phase_sm2(profile=False):
+    """Phase 13, the slice's main path: the 2x2 SM DL at 20 MHz, TM4 (DCI 2)
+    and TM3 (DCI 2A).  Returns the launch counts of each one's noisy counted
+    dispatch, the TM4 median and the TM4 stimulus."""
+    tm4 = SmChain(ports=2, tm=4)
+    counts4, ms, stim = phase_sm("13 SM 2x2 TM4", tm4, SM_SNR_DB, SM_SEED, profile=profile)
+    tm3 = SmChain(ports=2, tm=3)
+    counts3, _, _ = phase_sm("13 SM 2x2 TM3", tm3, SM_SNR_DB, SM_SEED + 1, timed_path=False)
+    return {"sm2_tm4": counts4, "sm2_tm3": counts3}, ms, (tm4, stim)
+
+
+def phase_sm4(profile=False):
+    """Phase 14: the 4-port cell at 20 MHz: PdschSm4 with pmi 0 (timed) and
+    with CDD, 4-port PCFICH, PDCCH (DCI 2 at 54 bits) and PHICH on rx 0, and
+    the 4-port PBCH of a subframe 0 read from a 4-port estimate."""
+    from srslte_tpu_torch.phy.phch.pbch import Mib, Pbch
+
+    c0 = SmChain(ports=4, pmi4=0)
+    counts, ms, _ = phase_sm("14 SM 4x4 pmi 0", c0, SM4_SNR_DB, SM_SEED + 2, profile=profile)
+    cdd = SmChain(ports=4, pmi4=None)
+    phase_sm("14 SM 4x4 CDD", cdd, SM4_SNR_DB, SM_SEED + 3, timed_path=False)
+
+    mib = Mib(n_prb=100, phich_length="norm", phich_resources="1", sfn=8)
+    g = c0.enb.put_pbch(c0.enb.put_base(c0.enb.empty_grids((1,), device="cuda"), 0), mib)
+    rx = torch.einsum("rp,bps->brs", c0.h, c0.enb.gen_signal(g))
+    grid, ce, _ = c0.ue.fft_estimate(rx, 0)
+    reset_counts()
+    ok, bits, phase, ports = Pbch(c0.cell).decode(grid[0, 0], ce[0, 0])
+    launches = read_counts()["viterbi_decode"]
+    got = Mib.unpack(bits)
+    check(ok and ports == 4 and phase == 0 and got == mib,
+          f"4-port PBCH: ok {ok}, {ports} ports, phase {phase}, {got}")
+    check(launches == 1, f"4-port PBCH: {launches} Viterbi launches")
+    print(f"[14 SM 4x4] 4-port PBCH, subframe 0 through the 4x4 channel, decoded from rx 0's "
+          f"4-port estimate: {got}, {ports} ports, frame phase {phase}; one Viterbi launch over "
+          f"the 12 (phase x port) hypotheses", flush=True)
+    return {"sm4": counts}, ms
+
+
+def phase_dl_rest(sm):
+    """Phase 15: the rest of the DL at 100 PRB, one call each on BATCH
+    subframes: phase 13's noisy stimulus through the "interpolate" and
+    "wiener" estimates, PMCH, the DwPTS PDSCH and the extended-duration
+    PHICH.  Returns the launch counts of the PMCH and DwPTS paths."""
+    import dataclasses
+
+    from srslte_tpu_torch.phy.common.params import CP, Cell
+    from srslte_tpu_torch.phy.common.tdd import TddConfig
+    from srslte_tpu_torch.phy.ofdm import Ofdm
+    from srslte_tpu_torch.phy.phch.pdsch import Pdsch
+    from srslte_tpu_torch.phy.phch.pmch import Pmch
+    from srslte_tpu_torch.phy.phch.ra import DlGrant
+    from srslte_tpu_torch.phy.ue.ue_dl import UeDl
+
+    tm4, (sent, rx) = sm
+    gen = torch.Generator(device="cuda")
+    # phase 13's noise draw at SM_SNR_DB (its first noisy dispatch), and the
+    # same stimulus at the SNR where the JAX package's "interpolate" decodes
+    # (see SM_INTERP_SNR_DB): there the reference loses codeword 1, so that
+    # run gates codeword 0 only and prints codeword 1
+    for alg, snr_db, gate_cw1 in (("interpolate", SM_SNR_DB, False),
+                                  ("interpolate", SM_INTERP_SNR_DB, True),
+                                  ("wiener", SM_SNR_DB, True)):
+        chain = SmChain(ports=2, tm=4, chest=alg)
+        _, first_ms, _ = timed(lambda: chain.receive(rx, None, None))  # tables built
+        gen.manual_seed(SM_SEED)
+        out, ms, peak = timed(lambda: chain.receive(rx, snr_db, gen))
+        label = f"15 chest {alg}, {snr_db} dB"
+        cfi, dci, hi, tb = sm_score(out, sent, label, chain.dci)
+        sm_gates((cfi, dci, hi, tb if gate_cw1 else [tb[0], BATCH]), BATCH, label, noisy=True)
+        print(f"[{label}] phase 13's TM4 stimulus through UeDl(chest_algorithm={alg!r}): CFI "
+              f"{cfi}/{BATCH}, DCI {dci}/{BATCH}, HI {hi:.4f}, TB ok {tb} (codeword 1 "
+              f"{'gated' if gate_cw1 else 'not gated: the JAX package decodes 0/16 here'}); "
+              f"dispatch {ms:.3f} ms (the first, clean, with the tables built: {first_ms:.3f} "
+              f"ms); peak device memory {peak}", flush=True)
+    counts = {}
+
+    # PMCH: mcs 20 over an extended-CP 100 PRB cell, area 1, subframe 3
+    pm = Pmch(Cell(n_prb=100, id=1, cp=CP.EXT), area_id=1, sf_idx=3, mcs=20)
+    rng = np.random.default_rng(SM_SEED + 4)
+    bits = torch.as_tensor(rng.integers(0, 2, (BATCH, pm.cfg.tbs), dtype=np.uint8), device="cuda")
+    o = pm.cell.ofdm
+    ofdm = Ofdm(o, normalize=True)
+    s = ofdm.tx_sf(pm.encode(bits, torch.zeros((BATCH, o.nsymb_sf, o.nof_re),
+                                               dtype=torch.complex64, device="cuda")))
+    (dec, ok), ms, _ = timed(lambda: pm.decode(ofdm.rx_sf(s)))
+    check(bool(ok.all()) and bool((dec == bits).all()),
+          f"PMCH clean: TB ok {int(ok.sum())}/{BATCH}, or the bits differ")
+    gen.manual_seed(SM_SEED + 4)
+    reset_counts()
+    (dec, ok), ms20, peak = timed(lambda: pm.decode(ofdm.rx_sf(UlChain.noisy(s, 20.0, gen))))
+    counts["pmch"] = read_counts()
+    n_ok = int(ok.sum())
+    check(n_ok >= 0.8 * BATCH and bool((dec[ok] == bits[ok]).all()),
+          f"PMCH 20 dB: TB ok {n_ok}/{BATCH}, or a passing TB differs")
+    bad = Pmch(pm.cell, area_id=2, sf_idx=3, mcs=20)
+    _, ok_bad = bad.decode(ofdm.rx_sf(s))
+    check(not bool(ok_bad.any()), f"PMCH area 2 on area 1's grid: {int(ok_bad.sum())} CRCs pass")
+    print(f"[15 PMCH] mcs 20 (TBS {pm.cfg.tbs}, {pm.cfg.seg.C} code blocks of K "
+          f"{pm.cfg.seg.K1}) on a 100 PRB extended-CP cell, {BATCH} subframes: clean every TB "
+          f"({ms:.3f} ms); 20 dB TB ok {n_ok}/{BATCH} ({ms20:.3f} ms, peak device memory "
+          f"{peak}); area 2 on the same grid: every CRC fails; launches {counts['pmch']}",
+          flush=True)
+
+    # DwPTS: the special subframe of TDD configuration 1 / special config 4
+    tdd = TddConfig(sf_config=1, ss_config=4)
+    cell = Cell(n_prb=100, id=1, nof_ports=1)
+    grant = dataclasses.replace(DlGrant.full(100, 27), is_dwpts=True)
+    p = Pdsch(cell, grant, sf_idx=1, cfi=CFI, rnti=RNTI, dwpts_symbols=tdd.nof_dw)
+    rng = np.random.default_rng(SM_SEED + 5)
+    bits = torch.as_tensor(rng.integers(0, 2, (BATCH, p.cfg.tbs), dtype=np.uint8), device="cuda")
+    from srslte_tpu_torch.phy.enb.enb_dl import EnbDl
+
+    enb = EnbDl(cell)
+    g = enb.put_pdsch(enb.put_base(enb.empty_grids((BATCH,), device="cuda"), 1), p, bits)
+    check(not bool(g[..., tdd.nof_dw:, :].abs().any()) and int(p.re_idx.max()) < tdd.nof_dw * 1200,
+          "DwPTS: a PDSCH RE beyond the DwPTS symbols")
+    ue = UeDl(cell)
+    grid, ce, info = ue.fft_estimate(enb.gen_signal(g)[..., 0, :], 1)
+    reset_counts()
+    (dec, ok), ms, peak = timed(lambda: p.decode(grid, ce, info["noise"]))
+    counts["dwpts"] = read_counts()
+    check(bool(ok.all()) and bool((dec == bits).all()),
+          f"DwPTS clean: TB ok {int(ok.sum())}/{BATCH}, or the bits differ")
+    print(f"[15 DwPTS] TddConfig(1, 4): {tdd.nof_dw} DwPTS symbols, mcs 27 on TBS {p.cfg.tbs} "
+          f"(75 PRB of TBS), G {p.cfg.G}, {p.cfg.seg.C} code blocks of K {p.cfg.seg.K1}; "
+          f"{BATCH} clean subframes: every TB, no RE beyond symbol {tdd.nof_dw - 1}; decode "
+          f"{ms:.3f} ms, peak device memory {peak}; launches {counts['dwpts']}", flush=True)
+
+    # extended-duration PHICH at CFI 3 on the 2x2 cell
+    ext = SmChain(ports=2, tm=4, cfi=3, phich_length="ext")
+    (_, _, ack), g = ext.grids(SM_SEED + 6)
+    rx = torch.einsum("rp,bps->brs", ext.h, ext.enb.gen_signal(g))
+    grid, ce, _ = ext.ue.fft_estimate(rx, SF_IDX)
+    cfi, _ = ext.pcfich.decode(grid[:, 0], ce[:, 0])
+    hi, _ = ext.phich.decode(grid[:, 0], ce[:, 0])
+    on = ack >= 0
+    check(bool((cfi == 3).all()) and bool(((hi == (ack == 1)) | ~on).all()),
+          "extended-duration PHICH: a CFI or HI wrong on a clean channel")
+    print(f"[15 PHICH ext] CFI 3, extended duration, {ext.phich.ngroups} groups over symbols "
+          f"0-2, {BATCH} clean subframes through the 2x2 channel: every CFI and every sent HI "
+          f"right", flush=True)
+    return counts
+
+
 def phase_profile(label, run, dispatch_ms):
     """One dispatch (`run()`) under torch.profiler: the device's kernel time
     by name, and its share of an unprofiled dispatch (`dispatch_ms`)."""
@@ -1475,9 +1934,21 @@ def phase_profile(label, run, dispatch_ms):
 
 
 def main():
+    walls = {}
+    t_all = time.perf_counter()
+
+    def lap(name):
+        """The wall time since the last lap, under `name`."""
+        now = time.perf_counter()
+        walls[name] = now - lap.t
+        lap.t = now
+
+    lap.t = t_all
     smi = phase_device()
     phase_build()
+    lap("1-2 device and build")
     kernels = phase_kernels()
+    lap("3 kernels")
     chain = Chain()
     t0 = time.perf_counter()
     bits, s = chain.encode(seed=31)
@@ -1497,7 +1968,9 @@ def main():
           "UL stimulus shape or values")
     print(f"[6 UL path] stimulus: {BATCH} subframes encoded on the card by UeUl in "
           f"{time.perf_counter() - t0:.1f} s (tables built and uploaded on first use)", flush=True)
+    lap("4-5 DL")
     counts_ul, ul_ms = phase_ul(ul, ul_bits, ack, cqi, ul_s)
+    lap("6-7 UL")
     profile = "--profile" in sys.argv[1:]
     if profile:
         gen = torch.Generator(device="cuda")
@@ -1505,13 +1978,27 @@ def main():
         phase_profile("DL", lambda: chain.decode(s, SNR_DB, gen), dispatch_ms)
         phase_profile("UL", lambda: ul.decode(ul_s, UL_SNR_DB, gen), ul_ms)
     del s, ul_s
+    lap("DL and UL profiles")
     phase_gold()
     phase_gates()
+    lap("8-9 Gold sequence and BLER gates")
     counts_harq, _ = phase_harq(chain, np.random.default_rng(2025), profile)
+    lap("10 DL HARQ")
     phase_ul_control(profile)
+    lap("11 UL control")
     counts_blind = phase_blind(profile)
+    lap("12 blind receive")
+    counts_sm2, _, sm = phase_sm2(profile)
+    lap("13 SM 2x2")
+    counts_sm4, _ = phase_sm4(profile)
+    lap("14 SM 4x4")
+    counts_rest = phase_dl_rest(sm)
+    del sm
+    lap("15 rest of the DL")
     counts = {"dl_f32": counts_dl, "dl_bf16": counts_dl16, **counts_ul, "dl_harq": counts_harq,
-              "blind": counts_blind}
+              "blind": counts_blind, **counts_sm2, **counts_sm4, **counts_rest}
+    print(f"[wall] seconds per phase: {', '.join(f'{k} {v:.1f}' for k, v in walls.items())}; "
+          f"total {time.perf_counter() - t_all:.1f}", flush=True)
     line = []
     for name, k in kernels.items():
         # per path: the launches of its one counted noisy dispatch, and the

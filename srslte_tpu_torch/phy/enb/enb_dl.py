@@ -1,9 +1,9 @@
 """eNB downlink subframe composition (enb_dl.c equivalent).
 
-Reference behavior: lib/src/phy/enb/enb_dl.c: put_base (CRS/PSS/SSS, :344),
-put_pdcch (:372), put_pdsch (:404), gen_signal IFFT (:420).  Per-port RE grids
-are composed functionally (every `put_*` returns a new tensor) and modulated
-by the batched OFDM modulator.  PHICH is not ported yet.
+Reference behavior: lib/src/phy/enb/enb_dl.c: put_base (CRS/PSS/SSS/PCFICH/
+PHICH, :344), put_pdcch (:372), put_pdsch (:404), gen_signal IFFT (:420).
+Per-port RE grids (1, 2 or 4 ports) are composed functionally (every `put_*`
+returns a new tensor) and modulated by the batched OFDM modulator.
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ from ..phch.pbch import Mib, Pbch
 from ..phch.pcfich import Pcfich
 from ..phch.pdcch import Location, Pdcch
 from ..phch.pdsch import Pdsch
+from ..phch.phich import Phich
 from ..sync.sss import sss_sequence
 
 
@@ -86,9 +87,9 @@ class EnbDl:
     def put_pcfich(self, grids, sf_idx: int, cfi: int, device=None):
         return Pcfich(self.cell, sf_idx).encode(grids, cfi, device)
 
-    def put_phich(self, grids, sf_idx: int, ack):
-        raise NotImplementedError(
-            "PHICH is not ported yet (ROADMAP queue A item 8: rest of DL)")
+    def put_phich(self, grids, sf_idx: int, ack, device=None):
+        """HI values ack [..., ngroups, 8] in {-1: off, 0: NACK, 1: ACK}."""
+        return Phich(self.cell, sf_idx).encode(grids, ack, device)
 
     def put_pdcch(self, grids, sf_idx: int, cfi: int, payload, rnti: int,
                   loc: Location, device=None):

@@ -8,10 +8,10 @@ symbols 0-3 of subframe 0 over the center 72 subcarriers skipping 4-port CRS
 positions; decode tries every (frame-phase, antenna-count) hypothesis
 (srsran_pbch_decode:444).
 
-All 4 frame phases x {1, 2} antenna hypotheses decode as one
-de-rate-matching gather, one Viterbi kernel launch at [8, 120] -> [8, 40] and
-one CRC product; the C library's nested hypothesis loops become a leading
-axis of 8 and an argmax.  4 ports are ROADMAP queue A item 8.
+All 4 frame phases x {1, 2} antenna hypotheses (x {1, 2, 4} from a 4-port
+estimate) decode as one de-rate-matching gather, one Viterbi kernel launch at
+[8, 120] -> [8, 40] ([12, 120] with 4 ports) and one CRC product; the C
+library's nested hypothesis loops become a leading axis and an argmax.
 """
 
 from __future__ import annotations
@@ -27,7 +27,8 @@ from ..common.params import CP, Cell
 from ..common.sequence import gold_sequence, gold_sequence_signed
 from ..fec.convolutional import conv_encode_np, rm_conv_indices, rm_conv_rx, viterbi_decode
 from ..fec.crc import LTE_CRC16, crc_bits, crc_calc
-from ..mimo import alamouti_decode_2tx, alamouti_encode_2tx, equalize_zf
+from ..mimo import alamouti_decode_2tx, equalize_zf
+from ..mimo.mimo import alamouti_decode_4tx, diversity_put
 from ..modem.modem import Modulation, demod_soft, modulate
 
 MIB_LEN = 24
@@ -36,8 +37,6 @@ _BW_IDX = {6: 0, 15: 1, 25: 2, 50: 3, 75: 4, 100: 5}
 _BW_REV = {v: k for k, v in _BW_IDX.items()}
 _RES_IDX = {"1/6": 0, "1/2": 1, "1": 2, "2": 3}
 _RES_REV = {v: k for k, v in _RES_IDX.items()}
-_FOUR_PORTS = ("PBCH with 4 antenna ports is not ported yet "
-               "(ROADMAP queue A item 8: rest of DL)")
 
 
 def ant_mask(nof_ports: int) -> np.ndarray:
@@ -144,8 +143,6 @@ class Pbch:
         codeword is built on the host per 4-frame period (config-plane
         data); the phase selects the 480-bit quarter.
         """
-        if self.cell.nof_ports not in (1, 2):
-            raise NotImplementedError(_FOUR_PORTS)
         grids = as_tensor(grids, device)
         phase = mib.sfn % 4
         e = e_total(self.cell)
@@ -160,12 +157,7 @@ class Pbch:
         o = self.cell.ofdm
         idx = self._re_idx_t(grids.device)
         flat = grids.reshape(grids.shape[:-2] + (o.nsymb_sf * o.nof_re,)).clone()
-        if self.cell.nof_ports == 1:
-            flat[..., 0, idx] = sym
-        else:
-            tx = alamouti_encode_2tx(sym)
-            flat[..., 0, idx] = tx[0]
-            flat[..., 1, idx] = tx[1]
+        diversity_put(flat, idx, sym, self.cell.nof_ports)
         return flat.reshape(grids.shape)
 
     def decode(self, grid, ce, device=None):
@@ -184,13 +176,11 @@ class Pbch:
     def _decode_dev(self, grid, ce, device=None):
         """All (phase x ports) hypotheses in one pass -> (any_ok, bits, win).
 
-        Port hypotheses 1 and 2 (pbch.c srsran_pbch_decode:444 tries nant in
-        {1, 2, 4}; 4 ports raise here).
+        Port hypotheses 1 and 2 always; 4 when ce carries 4 estimated ports
+        (pbch.c srsran_pbch_decode:444 tries nant in {1, 2, 4}).
         """
         grid = as_tensor(grid, device)
         ce = as_tensor(ce, grid.device)
-        if ce.shape[0] >= 4:
-            raise NotImplementedError(_FOUR_PORTS)
         dev = grid.device
         e = e_total(self.cell)
         q = e // 4
@@ -200,10 +190,14 @@ class Pbch:
         h1 = ce[1].reshape(-1)[idx]
         x1 = equalize_zf(y, h0)
         x2 = alamouti_decode_2tx(y, h0, h1)
+        hyps = [demod_soft(x1, Modulation.QPSK), demod_soft(x2, Modulation.QPSK)]
         ports = (1, 2)
+        if ce.shape[0] >= 4:
+            x4, _ = alamouti_decode_4tx(y, ce[:4].reshape(4, -1)[:, idx])
+            hyps.append(demod_soft(x4, Modulation.QPSK))
+            ports = (1, 2, 4)
         nh = len(ports)
-        llr_hyp = torch.stack([demod_soft(x1, Modulation.QPSK),
-                               demod_soft(x2, Modulation.QPSK)])  # [nh, q]
+        llr_hyp = torch.stack(hyps)  # [nh, q]
         s = table(("pbch_scr", self.cell.id, e), dev, lambda: _scramble_signed(self.cell.id, e))
         # place the quarter LLRs at each of the 4 offsets of the e buffer
         qidx = table(("pbch_quarters", e), dev, lambda: _quarter_index(e).astype(np.int64))

@@ -5,7 +5,8 @@ scrambling with c_init = (ns/2+1)(2NID+1)*2^9 + NID, QPSK, 4 REG quadruplets
 (regs.c geometry), decode by correlation against the 3 codewords (:151).
 
 Decode correlates the 32 received LLRs against the whole codebook with one
-[3, 32] product, batched over subframes.  Ported: one antenna port.
+[3, 32] product, batched over subframes; 1 port, 2-port SFBC or 4-port
+SFBC-FSTD.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from ..._device import as_tensor, table
 from ..common.params import Cell
 from ..common.scrambling import pcfich_cinit
 from ..common.sequence import gold_sequence
-from ..mimo import equalize_zf
+from ..mimo.mimo import diversity_combine, diversity_put
 from ..modem.modem import Modulation, demod_soft, modulate
 from .regs import reg_layout
 
@@ -49,12 +50,6 @@ class Pcfich:
     cell: Cell
     sf_idx: int
 
-    def __post_init__(self):
-        if self.cell.nof_ports != 1:
-            raise NotImplementedError(
-                "PCFICH transmit diversity (2 and 4 ports) is not ported yet "
-                "(ROADMAP queue A item 8: rest of DL)")
-
     @functools.cached_property
     def re_idx(self) -> np.ndarray:
         return reg_layout(self.cell).pcfich_re
@@ -70,7 +65,7 @@ class Pcfich:
                        Modulation.QPSK)  # [16]
         o = self.cell.ofdm
         flat = grids.reshape(grids.shape[:-2] + (o.nsymb_sf * o.nof_re,)).clone()
-        flat[..., 0, self._re_idx_t(grids.device)] = sym
+        diversity_put(flat, self._re_idx_t(grids.device), sym, self.cell.nof_ports)
         return flat.reshape(grids.shape)
 
     def decode(self, grid, ce, device=None):
@@ -84,7 +79,7 @@ class Pcfich:
         idx = self._re_idx_t(grid.device)
         y = grid.reshape(grid.shape[:-2] + (-1,))[..., idx]
         cef = ce.reshape(ce.shape[:-2] + (o.nsymb_sf * o.nof_re,))
-        xhat = equalize_zf(y, cef[..., 0, :][..., idx])
+        xhat = diversity_combine(y, cef, idx, self.cell.nof_ports)[0]
         llr = demod_soft(xhat, Modulation.QPSK)  # [..., 32], positive => bit 1
         cb = table(("pcfich_cb", self.cell.id, self.sf_idx), grid.device,
                    lambda: _codebook_signed(self.cell.id, self.sf_idx))

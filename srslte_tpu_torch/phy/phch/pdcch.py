@@ -10,7 +10,7 @@ REG interleaving (regs.py); search spaces per 36.213: common (L=4: CCEs
 The C library's control-heavy early-exit candidate loop (ue_dl.c:645) becomes
 ONE batched pipeline: all candidates gather, equalize, demodulate,
 de-ratematch, Viterbi-decode and CRC-check together; hits are selected by
-mask on the host.  Ported: one antenna port.
+mask on the host.  1 port, 2-port SFBC or 4-port SFBC-FSTD.
 """
 
 from __future__ import annotations
@@ -27,7 +27,7 @@ from ..common.scrambling import pdcch_cinit
 from ..common.sequence import gold_sequence, gold_sequence_signed
 from ..fec.convolutional import conv_encode, rm_conv_rx, rm_conv_tx, viterbi_decode
 from ..fec.crc import LTE_CRC16, crc_bits, crc_ok_device
-from ..mimo import equalize_zf
+from ..mimo.mimo import diversity_combine, diversity_put
 from ..modem.modem import Modulation, demod_soft, modulate
 from .regs import reg_layout
 
@@ -89,10 +89,6 @@ class Pdcch:
         # must span them or PHICH/PDSCH REs collide (36.211 table 6.9.3-1)
         if self.cell.phich_length == "ext" and self.cfi < 3:
             raise ValueError("extended PHICH duration requires CFI >= 3")
-        if self.cell.nof_ports != 1:
-            raise NotImplementedError(
-                "PDCCH transmit diversity (2 and 4 ports) is not ported yet "
-                "(ROADMAP queue A item 8: rest of DL)")
 
     @functools.cached_property
     def re_idx(self) -> np.ndarray:
@@ -130,7 +126,7 @@ class Pdcch:
         o = self.cell.ofdm
         idx = as_tensor(self.re_idx[loc.cce * 36 : (loc.cce + loc.L) * 36].astype(np.int64), dev)
         flat = grids.reshape(grids.shape[:-2] + (o.nsymb_sf * o.nof_re,)).clone()
-        flat[..., 0, idx] = sym
+        diversity_put(flat, idx, sym, self.cell.nof_ports)
         return flat.reshape(grids.shape)
 
     # -- UE side --------------------------------------------------------------
@@ -148,11 +144,18 @@ class Pdcch:
             [self.re_idx[l.cce * 36 : (l.cce + L) * 36] for l in locs]).astype(np.int64))
         y = grid.reshape(grid.shape[:-2] + (-1,))[..., idx]  # [..., ncand, 36L]
         cef = ce.reshape(ce.shape[:-3] + (ce.shape[-3], o.nsymb_sf * o.nof_re))
-        xhat = equalize_zf(y, cef[..., 0, :][..., idx])
+        xhat = diversity_combine(y, cef, idx, self.cell.nof_ports)[0]
         llr = demod_soft(xhat, Modulation.QPSK)  # [..., ncand, 72L]
         soff = table(("pdcch_scr", self, locs), dev, lambda: np.stack(
             [self._scramble_signed[l.cce * 72 : (l.cce + L) * 72] for l in locs]))
         return llr * soff
+
+    def decode_candidates(self, grid, ce, locs, payload_len: int, rnti: int,
+                          device=None):
+        """Blind-decode candidates (all of one L): -> (ok [..., ncand],
+        bits [..., ncand, K])."""
+        return self._decode_mixed_traced(grid, ce, (tuple(locs),), payload_len,
+                                         rnti_mask(rnti), device)
 
     def _decode_mixed_traced(self, grid, ce, locs_by_L: tuple,
                              payload_len: int, rnti_mask_arr, device=None):
@@ -175,6 +178,32 @@ class Pdcch:
         ok = crc_ok_device(bits, *LTE_CRC16, rnti_mask=rnti_mask_arr)
         return ok, bits[..., :payload_len]
 
+    def all_locations(self, Ls=(4, 8)) -> tuple:
+        """Every aligned candidate at the given aggregation levels."""
+        locs = []
+        for L in Ls:
+            locs.extend(Location(c, L) for c in range(0, self.n_cce - L + 1, L))
+        return tuple(locs)
+
+    def search_all(self, grid, ce, rnti: int, payload_len: int, Ls=(4, 8),
+                   device=None):
+        """Blind search of one subframe over ALL aligned candidates at the
+        levels Ls: list of (Location, payload bits np[K])."""
+        locs = self.all_locations(Ls)
+        groups = tuple(tuple(l for l in locs if l.L == L) for L in Ls)
+        return self._hits(grid, ce, groups, rnti, payload_len, device)
+
+    def _hits(self, grid, ce, groups, rnti, payload_len, device):
+        """One pass over the candidate groups; the hits on the host."""
+        flat = [l for g in groups for l in g]
+        if not flat:
+            return []
+        ok, bits = self._decode_mixed_traced(grid, ce, groups, payload_len,
+                                             rnti_mask(rnti), device)
+        ok = ok.cpu().numpy()
+        bits = bits.cpu().numpy()
+        return [(l, bits[i]) for i, l in enumerate(flat) if ok[i]]
+
     def search(self, grid, ce, rnti: int, payload_len: int,
                include_common: bool = True, device=None):
         """Full blind search of one subframe: list of (Location, payload bits np[K]).
@@ -188,11 +217,4 @@ class Pdcch:
                     locs.append(l)
         groups = tuple(tuple(l for l in locs if l.L == L)
                        for L in sorted({l.L for l in locs}))
-        flat = [l for g in groups for l in g]
-        if not flat:
-            return []
-        ok, bits = self._decode_mixed_traced(grid, ce, groups, payload_len,
-                                             rnti_mask(rnti), device)
-        ok = ok.cpu().numpy()
-        bits = bits.cpu().numpy()
-        return [(l, bits[i]) for i, l in enumerate(flat) if ok[i]]
+        return self._hits(grid, ce, groups, rnti, payload_len, device)

@@ -2,13 +2,15 @@
 
 Reference behavior: lib/src/phy/phch/pdsch.c (srsran_pdsch_encode:1017,
 srsran_pdsch_decode:788) and prb_dl.c RE mapping.  Encode: DL-SCH coding ->
-scrambling -> modulation -> RE mapping.  Decode: RE extraction -> equalize ->
-soft demod -> descramble -> DL-SCH decode.
+scrambling -> modulation -> (layer map/precode) -> RE mapping.  Decode: RE
+extraction -> equalize -> soft demod -> descramble -> DL-SCH decode.
 
-The RE map (around CRS / control region / PBCH / sync) is a static gather
-index per (cell, grant, sf class, cfi) bucket, so a whole subframe's PDSCH
-moves with two gathers.  Ported: one antenna port (TM1).  Transmit diversity
-and spatial multiplexing (`PdschSm`, `PdschSm4`) are ROADMAP queue A item 8.
+The RE map (around CRS / control region / PBCH / sync, and the DwPTS end of a
+TDD special subframe) is a static gather index per (cell, grant, sf class,
+cfi) bucket, so a whole subframe's PDSCH moves with two gathers.  `Pdsch`
+runs TM1 (1 port) and transmit diversity (2-port SFBC, 4-port SFBC-FSTD);
+`PdschSm` 2-layer spatial multiplexing with two codewords (TM3 CDD, TM4
+codebook) and `PdschSm4` 4 layers on 4 ports.
 """
 
 from __future__ import annotations
@@ -23,7 +25,8 @@ from ..._device import as_tensor, table
 from ..chest.refsignal_dl import crs_mask
 from ..common.params import Cell
 from ..common.scrambling import pdsch_cinit, scramble_bits, scramble_llr
-from ..mimo import equalize_zf
+from ..mimo.mimo import (diversity_combine, diversity_put, mmse_sm_2layer, mmse_sm_4port,
+                         precode_sm_2layer, precode_sm_4port)
 from ..modem.modem import demod_soft, modulate
 from .dlsch import DlschConfig, dlsch_decode, dlsch_encode
 from .ra import DlGrant
@@ -114,8 +117,9 @@ class Pdsch:
     sf_idx: int
     cfi: int = 1
     rnti: int = 0x1234
-    # TDD special subframe: PDSCH maps only to the DwPTS symbols; pair with
-    # grant.is_dwpts for the 0.75-scaled TBS (36.213 §7.1.7)
+    # TDD special subframe: PDSCH maps only to the DwPTS symbols
+    # (tdd.SPECIAL_SF_SYMBOLS[ss_config][0]); pair with grant.is_dwpts for
+    # the 0.75-scaled TBS (36.213 §7.1.7)
     dwpts_symbols: int | None = None
 
     def __post_init__(self):
@@ -123,10 +127,6 @@ class Pdsch:
         # mapped from a smaller control region
         if self.cell.phich_length == "ext" and self.cfi < 3:
             raise ValueError("extended PHICH duration requires CFI >= 3")
-        if self.cell.nof_ports != 1:
-            raise NotImplementedError(
-                "PDSCH transmit diversity (2 and 4 ports) is not ported yet "
-                "(ROADMAP queue A item 8: rest of DL)")
 
     @functools.cached_property
     def cfg(self) -> DlschConfig:
@@ -151,6 +151,7 @@ class Pdsch:
         """bits [..., tbs] -> grids with PDSCH REs filled (a new tensor).
 
         grids: [..., nports, nsym_sf, nof_re] complex64 per-port RE grids.
+        TM1 (1 port), SFBC (2 ports) or SFBC-FSTD (4 ports).
         """
         grids = as_tensor(grids, device)
         bits = as_tensor(bits, grids.device)
@@ -159,7 +160,7 @@ class Pdsch:
         sym = modulate(scr, self.grant.modulation)
         o = self.cell.ofdm
         flat = grids.reshape(grids.shape[:-2] + (o.nsymb_sf * o.nof_re,)).clone()
-        flat[..., 0, self._re_idx_t(grids.device)] = sym
+        diversity_put(flat, self._re_idx_t(grids.device), sym, self.cell.nof_ports)
         return flat.reshape(grids.shape)
 
     # -- UE side ------------------------------------------------------------
@@ -167,8 +168,9 @@ class Pdsch:
         """grid [..., nsym, nre], ce [..., nports, nsym, nre] -> descrambled
         LLRs [..., G] (positive => bit 1).
 
-        Equalizes (zero forcing, 1 port), demodulates, weights each RE's LLRs
-        by its post-equalization SNR and descrambles: what a HARQ soft buffer
+        Equalizes (zero forcing for 1 port, SFBC combining for 2, SFBC-FSTD
+        for 4), demodulates, weights each RE's LLRs by its post-equalization
+        SNR and descrambles: what a HARQ soft buffer
         combines (`mac.harq.combine_llr`) and `decode` decodes.
         """
         grid = as_tensor(grid, device)
@@ -180,9 +182,7 @@ class Pdsch:
         nv = as_tensor(noise_var, grid.device, torch.float32)
         if nv.dim():
             nv = nv[..., None]  # broadcast over REs
-        h = cef[..., 0, :][..., idx]
-        xhat = equalize_zf(y, h)
-        gain = torch.abs(h) ** 2  # per-RE reliability after ZF
+        xhat, gain = diversity_combine(y, cef, idx, self.cell.nof_ports)
         # weight LLRs by per-RE post-equalization SNR (max-log optimal scaling)
         w = gain / torch.clamp(nv, min=1e-9)
         llr = demod_soft(xhat, self.grant.modulation)
@@ -199,3 +199,153 @@ class Pdsch:
         """
         llr = self.soft_bits(grid, ce, noise_var, device)
         return dlsch_decode(llr, self.cfg, n_iter=n_iter, siso_dtype=siso_dtype)
+
+
+def _weighted_llr(x, gain, nv, mod, cinit: int):
+    """Soft bits of one codeword's symbols x [..., n]: LLRs weighted by the
+    per-RE post-MMSE gain over the scalar noise nv, descrambled."""
+    llr = demod_soft(x, mod)
+    w = gain / torch.clamp(nv, min=1e-9)
+    llr = llr * torch.repeat_interleave(w, mod.bits_per_symbol, dim=-1)
+    return scramble_llr(llr, cinit)
+
+
+@dataclass(frozen=True)
+class PdschSm(Pdsch):
+    """PDSCH with 2-layer spatial multiplexing (TM3/TM4, 2 codewords).
+
+    Reference behavior: pdsch.c 2-TB path + precoding.c CDD/PMI kernels.
+    pmi=None selects TM3 large-delay CDD; pmi in {0,1,2} selects the 2-port
+    codebook entry (TM4).  Requires cell.nof_ports == 2 and a 2-RX-antenna
+    receiver.
+    """
+
+    pmi: int | None = None
+    # Second-TB grant (same PRB set, its own MCS/RV) for per-TB link
+    # adaptation as signaled by DCI 2/2A (dci.c tb[1]); None = same as TB0.
+    grant1: DlGrant | None = None
+
+    def __post_init__(self):
+        if self.cell.nof_ports != 2:
+            raise ValueError("2-layer SM needs 2 TX ports")
+        if self.grant1 is not None and self.grant1.prb_mask != self.grant.prb_mask:
+            raise ValueError("both TBs of a 2-layer grant share its PRBs")
+
+    def cinit_q(self, q: int) -> int:
+        return pdsch_cinit(self.rnti, q, self.sf_idx, self.cell.id)
+
+    def cfg_q(self, q: int) -> DlschConfig:
+        if q == 0 or self.grant1 is None:
+            return self.cfg
+        return dlsch_config(self.cell, self.grant1, self.sf_idx, self.cfi)
+
+    def grant_q(self, q: int) -> DlGrant:
+        return self.grant if (q == 0 or self.grant1 is None) else self.grant1
+
+    def _layers(self, bits0, bits1, device):
+        """Per codeword: DL-SCH coding, scrambling and modulation."""
+        out = []
+        for q, bits in enumerate((bits0, bits1)):
+            coded = dlsch_encode(as_tensor(bits, device), self.cfg_q(q))
+            scr = scramble_bits(coded, self.cinit_q(q))
+            out.append(modulate(scr, self.grant_q(q).modulation))
+        return out
+
+    def _rx(self, grids_rx, ce, noise_var, device):
+        """(y [..., nrx, n], h [..., nrx, ntx, n], scalar noise) at the PDSCH
+        REs; the noise is the mean of every value given (the reference's
+        one regularizer for the whole batch)."""
+        grids_rx = as_tensor(grids_rx, device)
+        ce = as_tensor(ce, grids_rx.device)
+        idx = self._re_idx_t(grids_rx.device)
+        y = grids_rx.reshape(grids_rx.shape[:-2] + (-1,))[..., idx]
+        h = ce.reshape(ce.shape[:-2] + (-1,))[..., idx]
+        nv = torch.mean(as_tensor(noise_var, grids_rx.device, torch.float32))
+        return y, h, nv
+
+    # -- eNB side -----------------------------------------------------------
+    def encode2(self, bits0, bits1, grids, device=None):
+        """Two transport blocks -> 2 layers -> 2 ports (a new tensor)."""
+        grids = as_tensor(grids, device)
+        x = torch.stack(self._layers(bits0, bits1, grids.device), dim=-2)  # [..., 2, n]
+        ports = precode_sm_2layer(x, self.pmi)  # [..., 2, n]
+        o = self.cell.ofdm
+        flat = grids.reshape(grids.shape[:-2] + (o.nsymb_sf * o.nof_re,)).clone()
+        idx = self._re_idx_t(grids.device)
+        for p in range(2):
+            flat[..., p, idx] = ports[..., p, :]
+        return flat.reshape(grids.shape)
+
+    # -- UE side ------------------------------------------------------------
+    def soft_bits2(self, grids_rx, ce, noise_var, device=None):
+        """grids_rx [..., 2rx, nsym, nre], ce [..., 2rx, 2tx, nsym, nre] ->
+        the two codewords' descrambled LLRs (MMSE detection, then each
+        layer's LLRs weighted by its post-MMSE gain)."""
+        y, h, nv = self._rx(grids_rx, ce, noise_var, device)
+        xhat, gain = mmse_sm_2layer(y, h, nv[None], self.pmi)
+        return tuple(_weighted_llr(xhat[..., q, :], gain[..., q, :], nv,
+                                   self.grant_q(q).modulation, self.cinit_q(q))
+                     for q in range(2))
+
+    def decode2(self, grids_rx, ce, noise_var, n_iter: int = 5, device=None,
+                siso_dtype: torch.dtype = torch.float32):
+        """grids_rx [..., 2rx, nsym, nre], ce [..., 2rx, 2tx, nsym, nre] ->
+        ((bits0, ok0), (bits1, ok1)); each codeword decodes as its own
+        DL-SCH batch, as in the C library."""
+        llrs = self.soft_bits2(grids_rx, ce, noise_var, device)
+        return tuple(dlsch_decode(llr, self.cfg_q(q), n_iter=n_iter, siso_dtype=siso_dtype)
+                     for q, llr in enumerate(llrs))
+
+
+@dataclass(frozen=True)
+class PdschSm4(PdschSm):
+    """PDSCH with 4-layer spatial multiplexing (4 TX ports, 2 codewords).
+
+    Layer mapping per 36.211 table 6.3.3.2-1 (2 CW / 4 layers): codeword q
+    feeds layers 2q and 2q+1 alternately, so each codeword carries
+    2 * nof_re symbols.  pmi=None selects 4-port large-delay CDD (TM3-style
+    rank 4); pmi in 0..15 the 36.211 Householder codebook entry (TM4).
+    Beyond the C library's 2x2 ceiling (precoding.c srsran_precoding_cdd
+    rejects 4 ports).
+    """
+
+    def __post_init__(self):
+        if self.cell.nof_ports != 4:
+            raise ValueError("4-layer SM needs 4 TX ports")
+        if self.grant1 is not None and self.grant1.prb_mask != self.grant.prb_mask:
+            raise ValueError("both TBs of a 4-layer grant share its PRBs")
+
+    def cfg_q(self, q: int) -> DlschConfig:
+        g = self.grant_q(q)
+        n_re = nof_re_pdsch(self.cell, g, self.sf_idx, self.cfi)
+        qm = g.modulation.bits_per_symbol
+        return DlschConfig(tbs=g.tbs, G=2 * n_re * qm, Qm=qm, rv=g.rv)
+
+    # -- eNB side -----------------------------------------------------------
+    def encode2(self, bits0, bits1, grids, device=None):
+        """Two transport blocks -> 4 layers -> 4 ports (a new tensor)."""
+        grids = as_tensor(grids, device)
+        layers = []
+        for sym in self._layers(bits0, bits1, grids.device):  # [..., 2*n_re]
+            layers += [sym[..., 0::2], sym[..., 1::2]]
+        ports = precode_sm_4port(torch.stack(layers, dim=-2), self.pmi)  # [..., 4, n_re]
+        o = self.cell.ofdm
+        flat = grids.reshape(grids.shape[:-2] + (o.nsymb_sf * o.nof_re,)).clone()
+        idx = self._re_idx_t(grids.device)
+        for p in range(4):
+            flat[..., p, idx] = ports[..., p, :]
+        return flat.reshape(grids.shape)
+
+    # -- UE side ------------------------------------------------------------
+    def soft_bits2(self, grids_rx, ce, noise_var, device=None):
+        """grids_rx [..., 4rx, nsym, nre], ce [..., 4rx, 4tx, nsym, nre] ->
+        the two codewords' descrambled LLRs (4-layer MMSE, layers 2q and
+        2q+1 de-mapped back into codeword q's symbol stream)."""
+        y, h, nv = self._rx(grids_rx, ce, noise_var, device)
+        xhat, gain = mmse_sm_4port(y, h, nv[None], self.pmi, n_layers=4)
+        lead = xhat.shape[:-2]
+        return tuple(
+            _weighted_llr(xhat[..., 2 * q:2 * q + 2, :].transpose(-1, -2).reshape(lead + (-1,)),
+                          gain[..., 2 * q:2 * q + 2, :].transpose(-1, -2).reshape(lead + (-1,)),
+                          nv, self.grant_q(q).modulation, self.cinit_q(q))
+            for q in range(2))

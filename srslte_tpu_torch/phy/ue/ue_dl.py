@@ -32,7 +32,11 @@ class UeDl:
         return ChestDL(self.cell, algorithm=self.chest_algorithm)
 
     def fft_estimate(self, samples, sf_idx: int, device=None):
-        """samples [..., sf_len] -> (grid, ce, info)."""
+        """samples [..., sf_len] -> (grid, ce, info).
+
+        Leading dims are batch dims: subframes, and rx antennas, whose
+        estimates come out as ce [..., nrx, nports, nsym, nre] for the
+        spatial-multiplexing decoders (`PdschSm.decode2`)."""
         grid = self.ofdm.rx_sf(as_tensor(samples, device))
         ce, info = self.chest.estimate(grid, sf_idx)
         return grid, ce, info

@@ -1,4 +1,4 @@
-"""PBCH, the MIB decoder, the 2-port channel estimate and 2-port SFBC against
+"""PBCH, the MIB decoder, the 2- and 4-port channel estimate and SFBC against
 the JAX package, on the CPU.
 
 The same numpy inputs (grids, channels and noise from seeds) go through both
@@ -103,9 +103,16 @@ def test_chest_dl_two_ports(n_prb, sf_idx):
 
 
 def test_chest_dl_four_ports_raise():
-    _, tc = cells(6, 1, 4)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        t_chest.ChestDL(tc)
+    """Named when a 4-port estimate raised: it now runs, and equals the
+    reference's (tolerance as `close`)."""
+    jc, tc = cells(6, 1, 4)
+    rng = np.random.default_rng(4)
+    grid = cplx(rng, (2, 14, 72))
+    ce_j, info_j = j_chest.ChestDL(jc).estimate(jnp.asarray(grid), 3)
+    ce_t, info_t = t_chest.ChestDL(tc).estimate(torch.as_tensor(grid), 3)
+    assert ce_t.shape == (2, 4, 14, 72)
+    close(ce_t, ce_j)
+    np.testing.assert_allclose(info_t["noise"].numpy(), np.asarray(info_j["noise"]), rtol=1e-4)
 
 
 # ------------------------------------------------------------------- PBCH
@@ -133,13 +140,22 @@ def test_pbch_encode_frame(nof_ports):
 
 
 def test_pbch_four_ports_raise():
-    _, tc = cells(6, 1, 4)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        t_pbch.Pbch(tc).encode_frame(t_pbch.Mib(6, "norm", "1", 0), torch.zeros((4, 14, 72)))
-    _, t2 = cells(6, 1, 2)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        t_pbch.Pbch(t2).decode(torch.zeros((14, 72), dtype=torch.complex64),
-                               torch.ones((4, 14, 72), dtype=torch.complex64))
+    """Named when 4-port PBCH raised: the 4-port burst (SFBC-FSTD) now
+    equals the reference's, and a 4-port estimate decodes it with the port
+    count 4 found among 12 hypotheses, as the reference does."""
+    jc, tc = cells(6, 1, 4)
+    jm, tm = j_pbch.Mib(6, "norm", "1", 2), t_pbch.Mib(6, "norm", "1", 2)
+    ref = j_pbch.Pbch(jc).encode_frame(jm, jnp.zeros((4, 14, 72), jnp.complex64))
+    got = t_pbch.Pbch(tc).encode_frame(tm, torch.zeros((4, 14, 72), dtype=torch.complex64))
+    close(got, ref)
+    rng = np.random.default_rng(5)
+    h = cplx(rng, (4, 1, 1), np.sqrt(0.5))
+    grid = ((got.numpy() * h).sum(0) + cplx(rng, (14, 72), 0.03)).astype(np.complex64)
+    ce = np.ascontiguousarray(np.broadcast_to(h, (4, 14, 72)).astype(np.complex64))
+    ok_j, bits_j, ph_j, p_j = j_pbch.Pbch(jc).decode(jnp.asarray(grid), jnp.asarray(ce))
+    ok_t, bits_t, ph_t, p_t = t_pbch.Pbch(tc).decode(torch.as_tensor(grid), torch.as_tensor(ce))
+    assert (ok_t, ph_t, p_t) == (bool(ok_j), ph_j, p_j) == (True, 2, 4)
+    np.testing.assert_array_equal(bits_t, np.asarray(bits_j))
 
 
 def pbch_rx(nof_ports, sfn, snr_noise, seed):

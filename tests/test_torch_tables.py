@@ -14,15 +14,18 @@ import numpy as np
 import pytest
 
 import srslte_tpu.phy.chest.chest_dl as j_chest
+import srslte_tpu.phy.common.band as j_band
 import srslte_tpu.phy.chest.refsignal_dl as j_rs
 import srslte_tpu.phy.common.params as j_params
 import srslte_tpu.phy.common.scrambling as j_scr
 import srslte_tpu.phy.common.sequence as j_seq
+import srslte_tpu.phy.common.tdd as j_tdd
 import srslte_tpu.phy.common.zc as j_zc
 import srslte_tpu.phy.fec.cbsegm as j_cbsegm
 import srslte_tpu.phy.fec.convolutional as j_conv
 import srslte_tpu.phy.fec.crc as j_crc
 import srslte_tpu.phy.fec.turbo as j_turbo
+import srslte_tpu.phy.mimo.mimo as j_mimo
 import srslte_tpu.phy.modem.modem as j_modem
 import srslte_tpu.phy.ofdm as j_ofdm
 import srslte_tpu.phy.phch.dci as j_dci
@@ -31,6 +34,8 @@ import srslte_tpu.phy.phch.pbch as j_pbch
 import srslte_tpu.phy.phch.pcfich as j_pcfich
 import srslte_tpu.phy.phch.pdcch as j_pdcch
 import srslte_tpu.phy.phch.pdsch as j_pdsch
+import srslte_tpu.phy.phch.phich as j_phich
+import srslte_tpu.phy.phch.pmch as j_pmch
 import srslte_tpu.phy.phch.prach as j_prach
 import srslte_tpu.phy.phch.pucch as j_pucch
 import srslte_tpu.phy.phch.ra as j_ra
@@ -39,15 +44,18 @@ import srslte_tpu.phy.phch.srs as j_srs
 import srslte_tpu.phy.sync.pss as j_pss
 import srslte_tpu.phy.sync.sss as j_sss
 import srslte_tpu_torch.phy.chest.chest_dl as t_chest
+import srslte_tpu_torch.phy.common.band as t_band
 import srslte_tpu_torch.phy.chest.refsignal_dl as t_rs
 import srslte_tpu_torch.phy.common.params as t_params
 import srslte_tpu_torch.phy.common.scrambling as t_scr
 import srslte_tpu_torch.phy.common.sequence as t_seq
+import srslte_tpu_torch.phy.common.tdd as t_tdd
 import srslte_tpu_torch.phy.common.zc as t_zc
 import srslte_tpu_torch.phy.fec.cbsegm as t_cbsegm
 import srslte_tpu_torch.phy.fec.convolutional as t_conv
 import srslte_tpu_torch.phy.fec.crc as t_crc
 import srslte_tpu_torch.phy.fec.turbo as t_turbo
+import srslte_tpu_torch.phy.mimo.mimo as t_mimo
 import srslte_tpu_torch.phy.modem.modem as t_modem
 import srslte_tpu_torch.phy.ofdm as t_ofdm
 import srslte_tpu_torch.phy.phch.dci as t_dci
@@ -56,6 +64,8 @@ import srslte_tpu_torch.phy.phch.pbch as t_pbch
 import srslte_tpu_torch.phy.phch.pcfich as t_pcfich
 import srslte_tpu_torch.phy.phch.pdcch as t_pdcch
 import srslte_tpu_torch.phy.phch.pdsch as t_pdsch
+import srslte_tpu_torch.phy.phch.phich as t_phich
+import srslte_tpu_torch.phy.phch.pmch as t_pmch
 import srslte_tpu_torch.phy.phch.prach as t_prach
 import srslte_tpu_torch.phy.phch.pucch as t_pucch
 import srslte_tpu_torch.phy.phch.ra as t_ra
@@ -86,12 +96,16 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     pat = re.compile(r"import jax|from jax|from srslte_tpu[ .]|import srslte_tpu( |$|\.)")
     files = sorted((ROOT / "srslte_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 30
-    # the blind receiver's modules and the example pair are among them
+    # the blind receiver's modules, the example pair and the rest of the DL
+    # are among them
     names = {str(f.relative_to(ROOT)) for f in files}
     for mod in ("phy/io/filesource.py", "phy/sync/pss.py", "phy/sync/sync.py",
                 "phy/sync/refsignal_sync.py", "phy/sync/sfo.py", "phy/ue/ue_cell_search.py",
                 "phy/ue/ue_sync.py", "phy/ue/ue_mib.py", "phy/phch/pbch.py",
-                "examples/pdsch_enodeb.py", "examples/pdsch_ue.py"):
+                "examples/pdsch_enodeb.py", "examples/pdsch_ue.py", "phy/mimo/mimo.py",
+                "phy/chest/chest_dl.py", "phy/phch/phich.py", "phy/phch/pmch.py",
+                "phy/phch/dci.py", "phy/phch/pdsch.py", "phy/common/tdd.py",
+                "phy/common/band.py"):
         assert f"srslte_tpu_torch/{mod}" in names, mod
     hits = [f"{f.relative_to(ROOT)}:{i + 1}: {line}"
             for f in files for i, line in enumerate(f.read_text().splitlines())
@@ -413,6 +427,118 @@ def test_dlsch_groups_and_derm_tables(tbs, G, Qm):
     jcfg, tcfg = j_dlsch.DlschConfig(tbs, G, Qm), t_dlsch.DlschConfig(tbs, G, Qm)
     assert [dataclasses.asdict(g) for g in jcfg.groups] == \
         [dataclasses.asdict(g) for g in tcfg.groups]
+
+
+# -------------------------------------------------------- rest of the DL
+def test_mimo_codebooks():
+    """The 2-port and 4-port codebooks, the CDD matrices and every 4-port
+    precoder of rank 1-4 (and the Householder matrices are unitary)."""
+    for name in ("_W2", "_U2", "_U4", "_W4", "_DFT4", "_CDD4_W"):
+        eq(getattr(j_mimo, name), getattr(t_mimo, name))
+    assert j_mimo._CB4_COLS == t_mimo._CB4_COLS
+    for pmi in range(16):
+        w = t_mimo._W4[pmi]
+        assert np.allclose(w @ w.conj().T, np.eye(4), atol=1e-6)
+        for nl in (1, 2, 3, 4):
+            eq(j_mimo.codebook_4port(pmi, nl), t_mimo.codebook_4port(pmi, nl))
+
+
+@pytest.mark.parametrize("n_prb", (6, 25, 100))
+@pytest.mark.parametrize("alg", ["average", "interpolate", "wiener"])
+def test_chest_weight_tables(n_prb, alg):
+    """The interpolation and Wiener matrices (the latter a complex128
+    inverse on the host, P = 400 pilots at 100 PRB) of every port."""
+    jc, tc = cells(n_prb, 301, nof_ports=4)
+    jt, tt = j_chest.ChestDL(jc, alg)._tables, t_chest.ChestDL(tc, alg)._tables
+    for (jsyms, jks, jallk, jw, jtw), (tsyms, tks, tallk, tw, ttw, *_) in zip(jt, tt):
+        eq(jsyms, tsyms)
+        eq(jks, tks)
+        eq(jw, tw)
+        if alg == "interpolate":
+            eq(jtw, ttw)
+        else:
+            eq(jallk, tallk)
+    pos = np.array([0, 3, 7, 11])
+    eq(j_chest._interp_matrix(pos, 14), t_chest._interp_matrix(pos, 14))
+
+
+def test_phich_spread_tables():
+    eq(j_phich._walsh(), t_phich._walsh())
+    for cid in (0, 1, 301, 503):
+        for sf in range(10):
+            eq(j_phich._spread_matrix(cid, sf), t_phich._spread_matrix(cid, sf))
+
+
+@pytest.mark.parametrize("n_prb", PRBS)
+def test_mbsfn_tables(n_prb):
+    eq(j_pmch.mbsfn_rs_subcarriers(n_prb), t_pmch.mbsfn_rs_subcarriers(n_prb))
+    for area, sf in ((0, 0), (1, 3), (255, 9)):
+        eq(j_pmch.mbsfn_rs_values(n_prb, area, sf), t_pmch.mbsfn_rs_values(n_prb, area, sf))
+        assert j_pmch.pmch_cinit(sf, area) == t_pmch.pmch_cinit(sf, area)
+    jc, tc = cells(n_prb, 1, cp="ext")
+    for region in (1, 2):
+        eq(j_pmch.pmch_re_indices(jc, region), t_pmch.pmch_re_indices(tc, region))
+
+
+def test_tdd_special_subframe_tables():
+    for name in ("SPECIAL_SF_SYMBOLS", "NOF_HARQ", "K_PUSCH", "K_PHICH"):
+        assert getattr(j_tdd, name) == getattr(t_tdd, name)
+    assert [[t.value for t in row] for row in j_tdd.UL_DL_CONFIGS] == \
+        [[t.value for t in row] for row in t_tdd.UL_DL_CONFIGS]
+
+
+def test_band_table():
+    """The port's own copy of lte_bands.npy holds the same array."""
+    eq(np.load(ROOT / "srslte_tpu/phy/common/lte_bands.npy"),
+       np.load(ROOT / "srslte_tpu_torch/phy/common/lte_bands.npy"))
+    eq(j_band._bands(), t_band._bands())
+
+
+@pytest.mark.parametrize("n_prb", PRBS)
+def test_dci_sizes(n_prb):
+    """Every format's size, with the ambiguous-size padding, at 1, 2 and 4
+    ports."""
+    assert j_dci.AMBIGUOUS_SIZES == t_dci.AMBIGUOUS_SIZES
+    for name in ("format0_1a_size", "format1_size", "format1c_size", "_format0_raw_size",
+                 "riv_nbits"):
+        assert getattr(j_dci, name)(n_prb) == getattr(t_dci, name)(n_prb)
+    for ports in (1, 2, 4):
+        for name in ("format1b_size", "format1d_size", "format2_size", "format2a_size",
+                     "format2b_size"):
+            got = getattr(t_dci, name)(n_prb, ports)
+            assert got == getattr(j_dci, name)(n_prb, ports)
+            assert got not in t_dci.AMBIGUOUS_SIZES
+        for name in ("tpmi_bits", "precoding_bits_f2", "precoding_bits_f2a"):
+            assert getattr(j_dci, name)(ports) == getattr(t_dci, name)(ports)
+
+
+def test_sm_path_shapes():
+    """The 20 MHz numbers of `chip_smoke.py` phases 13-15, from the port's
+    own tables: per codeword of the 2x2 and 4x4 cells TBS 63776 in 11 code
+    blocks of K 5824 (G 79200 and 153600), the DCI lengths and candidate
+    counts, PMCH at mcs 20 and the DwPTS PDSCH."""
+    assert (t_dci.format2_size(100, 2), t_dci.format2a_size(100, 2),
+            t_dci.format2_size(100, 4)) == (51, 48, 54)
+    d = t_dci.Dci2(rbg_bitmask=(1 << 25) - 1, mcs=(27, 27), pinfo=2)
+    g0, g1 = d.grants(100)
+    for ports, cls, G, n_cce, n_cand in ((2, t_pdsch.PdschSm, 79200, 50, 18),
+                                         (4, t_pdsch.PdschSm4, 153600, 39, 20)):
+        cell = t_params.Cell(n_prb=100, id=1, nof_ports=ports)
+        p = cls(cell, g0, 4, cfi=2, rnti=0x46, pmi=0, grant1=g1)
+        for q in range(2):
+            cfg = p.cfg_q(q)
+            assert (cfg.tbs, cfg.G, cfg.seg.C, cfg.seg.K1) == (63776, G, 11, 5824)
+        pd = t_pdcch.Pdcch(cell, 2, 4)
+        locs = t_pdcch.ue_locations(pd.n_cce, 0x46, 4)
+        locs += [l for l in t_pdcch.common_locations(pd.n_cce) if l not in locs]
+        assert (pd.n_cce, len(locs)) == (n_cce, n_cand)
+    pm = t_pmch.Pmch(t_params.Cell(n_prb=100, id=1, cp=t_params.CP.EXT), 1, 3, 20)
+    assert (pm.cfg.tbs, pm.cfg.seg.C, pm.cfg.seg.K1) == (39232, 7, 5632)
+    grant = dataclasses.replace(t_ra.DlGrant.full(100, 27), is_dwpts=True)
+    dw = t_tdd.TddConfig(sf_config=1, ss_config=4).nof_dw
+    cfg = t_pdsch.Pdsch(t_params.Cell(n_prb=100, id=1), grant, 1, cfi=2, rnti=0x46,
+                        dwpts_symbols=dw).cfg
+    assert (dw, cfg.tbs, cfg.seg.C, cfg.seg.K1) == (12, 46888, 8, 5888)
 
 
 # ------------------------------------------------ PUCCH, SRS, PRACH tables
