@@ -105,7 +105,11 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
                 "examples/pdsch_enodeb.py", "examples/pdsch_ue.py", "phy/mimo/mimo.py",
                 "phy/chest/chest_dl.py", "phy/phch/phich.py", "phy/phch/pmch.py",
                 "phy/phch/dci.py", "phy/phch/pdsch.py", "phy/common/tdd.py",
-                "phy/common/band.py"):
+                "phy/common/band.py", "phy/channel/awgn.py", "phy/channel/fading.py",
+                "phy/channel/delay.py", "phy/channel/hst.py", "phy/channel/rlf.py",
+                "phy/channel/__init__.py", "phy/resampling/resampler.py", "phy/agc.py",
+                "phy/ue/intra_measure.py", "phy/io/net.py", "runtime/native.py", "radio.py",
+                "net/zmq_rf.py"):
         assert f"srslte_tpu_torch/{mod}" in names, mod
     hits = [f"{f.relative_to(ROOT)}:{i + 1}: {line}"
             for f in files for i, line in enumerate(f.read_text().splitlines())
@@ -115,6 +119,18 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     assert not pat.search("from srslte_tpu_torch.phy import ofdm")
     assert not pat.search("import srslte_tpu_torch.convert")
     assert pat.search("from srslte_tpu.phy import ofdm") and pat.search("import srslte_tpu")
+
+
+def test_only_the_zmq_transport_imports_zmq():
+    """pyzmq is optional (the card's machine has none): only
+    `net/zmq_rf.py` imports it, under a guard, and `chip_smoke.py` does not
+    import that module."""
+    pat = re.compile(r"^\s*(import zmq|from zmq)")
+    files = sorted((ROOT / "srslte_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    hits = {str(f.relative_to(ROOT)) for f in files
+            if any(pat.search(line) for line in f.read_text().splitlines())}
+    assert hits == {"srslte_tpu_torch/net/zmq_rf.py"}
+    assert "zmq_rf" not in (ROOT / "chip_smoke.py").read_text()
 
 
 # ----------------------------------------------------------------- params
@@ -541,6 +557,22 @@ def test_sm_path_shapes():
     assert (dw, cfg.tbs, cfg.seg.C, cfg.seg.K1) == (12, 46888, 8, 5888)
 
 
+@pytest.mark.parametrize("mcs,bucket", [(20, (39232, 82800, 7, 5632)),
+                                        (13, (22920, 55200, 4, 5760)),
+                                        (6, (10296, 27600, 2, 5184))])
+def test_channel_path_shapes(mcs, bucket):
+    """The 20 MHz DL-SCH buckets of `chip_smoke.py` phase 16 (DCI 1A over all
+    100 PRB at the fading profiles' mcs), the same in both packages: the SISO
+    shapes phase 3 holds the kernel at, none with K < 256."""
+    jc, tc = cells(100)
+    got = []
+    for pk_dci, pk_pdsch, cell in ((j_dci, j_pdsch, jc), (t_dci, t_pdsch, tc)):
+        d = pk_dci.Dci1A(rb_start=0, l_crb=100, mcs=mcs)
+        cfg = pk_pdsch.Pdsch(cell, d.grant(100), 4, cfi=2, rnti=0x46).cfg
+        got.append((cfg.tbs, cfg.G, cfg.seg.C, cfg.seg.K1))
+    assert got == [bucket, bucket] and bucket[3] >= 256
+
+
 # ------------------------------------------------ PUCCH, SRS, PRACH tables
 @pytest.mark.parametrize("npz", ["prach_roots.npz", "srs_bw.npz"])
 def test_npz_copies(npz):
@@ -665,3 +697,49 @@ def test_prach_tables(kw):
         if n_prb == 6:
             for idx in (0, 31, 63):
                 eq(j_prach.prach_gen(jcfg, idx), t_prach.prach_gen(tcfg, idx))
+
+
+# ------------------------------------------- channel emulator and resampler
+def test_channel_and_resampler_tables():
+    """The fading profiles, the Jakes parameters a seed gives, the tap
+    delays and amplitudes, and the arbitrary-rate resampler's filter bank
+    (the port's own copy of arb_polyfilt.npz) equal the reference's."""
+    import srslte_tpu.phy.channel.fading as j_fading
+    import srslte_tpu.phy.resampling.resampler as j_res
+    import srslte_tpu_torch.phy.channel.fading as t_fading
+    import srslte_tpu_torch.phy.resampling.resampler as t_res
+
+    assert t_fading.PROFILES == j_fading.PROFILES
+    assert t_fading.N_SINUSOIDS == j_fading.N_SINUSOIDS
+    for profile in t_fading.PROFILES:
+        for seed in (0, 7, 2024):
+            j = j_fading.FadingChannel(profile, 70.0, 30_720_000, seed=seed)
+            t = t_fading.FadingChannel(profile, 70.0, 30_720_000, seed=seed)
+            for a, b in zip(t._jakes + t._taps, j._jakes + j._taps):
+                eq(a, b)
+            assert t.halo == j.halo
+    j = np.load(ROOT / "srslte_tpu/phy/resampling/arb_polyfilt.npz")
+    t = np.load(ROOT / "srslte_tpu_torch/phy/resampling/arb_polyfilt.npz")
+    assert sorted(j.files) == sorted(t.files)
+    for k in j.files:
+        eq(j[k], t[k])
+    eq(t_res._arb_polyfilt(), j_res._arb_polyfilt())
+    assert (t_res.ARB_N, t_res.ARB_M) == (j_res.ARB_N, j_res.ARB_M)
+
+
+def test_channel_exports():
+    """The port's phy.channel, phy.resampling, phy.io and runtime packages
+    export the reference's names."""
+    import srslte_tpu.phy.channel as j_ch
+    import srslte_tpu.phy.io as j_io
+    import srslte_tpu.phy.resampling as j_rs
+    import srslte_tpu.runtime as j_rt
+    import srslte_tpu_torch.phy.channel as t_ch
+    import srslte_tpu_torch.phy.io as t_io
+    import srslte_tpu_torch.phy.resampling as t_rs
+    import srslte_tpu_torch.runtime as t_rt
+
+    for j, t in ((j_ch, t_ch), (j_io, t_io), (j_rs, t_rs), (j_rt, t_rt)):
+        names = {n for n in dir(j) if not n.startswith("_")
+                 and getattr(getattr(j, n), "__module__", "").startswith("srslte_tpu")}
+        assert names and all(hasattr(t, n) for n in names), (j.__name__, names)
