@@ -66,7 +66,17 @@ subframes, with the peak device memory of one dispatch per path:
 - (phase 17) the rails: phase 12's capture with and without the high-speed
   train, a delay, FileRadio, PipeRadio over the UDP pipe at the ZMQ base
   rate (one subframe per burst), -30 dB, the AGC and the blind receiver;
-  IntraMeasure ranking three PCIs; resample_arb on a tone.
+  IntraMeasure ranking three PCIs; resample_arb on a tone;
+- (phase 18, the main path of the latest slice) the full stack: EnbApp and
+  UeApp over the air, TTI by TTI, on a 20 MHz FDD cell (100 PRB, cell 42,
+  1 port): MIB, SIB1, SIB2, PRACH -> RAR -> msg3 -> msg4, RRC, NAS attach
+  with Milenage AKA, AS security, DRB, ciphered user plane and HARQ-ACK;
+  scenario A attaches and moves 64 packets of 1400 bytes each way, B two
+  UEs, C a forced NACK and its retransmission, D release, paging and
+  reconnect; every state at the TTI the JAX package reaches it
+  (tests/rehearse_stack.py), every packet once and in order to its own UE;
+  ms per call of the four per-TTI entry points, host synchronisations per
+  TTI, memory, the device-table cache and kernel launches by shape.
 
 Exits non-zero on any failure, and when there is no CUDA device.  The line
 before the last is the card's name and power limit; the last line is
@@ -74,13 +84,15 @@ before the last is the card's name and power limit; the last line is
 
 `python3 chip_smoke.py --profile` adds one DL and one UL dispatch, one HARQ
 round, one UL-control dispatch, one blind receive, one 2x2 and one 4x4 SM
-dispatch, one EVA70 channel + decode dispatch and the rails' blind receive
-under `torch.profiler` and prints the device's busy share and the kernels
-that take most of its time.  The line before the kernels line
+dispatch, one EVA70 channel + decode dispatch, the rails' blind receive and
+the full stack's bulk window (scenario A) under `torch.profiler` and prints
+the device's busy share and the kernels that take most of its time.  The line before the kernels line
 gives each phase's wall time and the total.
 """
 
+import collections
 import contextlib
+import functools
 import itertools
 import json
 import math
@@ -90,6 +102,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 import warnings
 
 import numpy as np
@@ -128,14 +141,27 @@ SISO_SHAPES = {"dl": (BATCH * 11, 5824, 256, 32),  # 11 code blocks of K 5824 pe
                # phase 16, the 1-port DL at the fading profiles' mcs: 20 (EPA5;
                # PMCH's shape), 13 (EVA70), 6 (ETU300)
                "epa": (BATCH * 7, 5632, 256, 32), "eva": (BATCH * 4, 5760, 256, 32),
-               "etu": (BATCH * 2, 5184, 256, 32)}
+               "etu": (BATCH * 2, 5184, 256, 32),
+               # phase 18, the full stack: one subframe's code blocks at a
+               # time; K < 256 as one window (L = K, T = 0): the first launch,
+               # SIB1's K 144; the RAR's K 80 and 112 (56 or 88 bits), SIB2's
+               # 248; then scenario A's largest DL and UL code blocks
+               "stack": (1, 144, 144, 0), "stack_rar80": (1, 80, 80, 0),
+               "stack_rar112": (1, 112, 112, 0), "stack_sib2": (1, 248, 248, 0),
+               "stack_dl_max": (13, 5824, 256, 32), "stack_ul_max": (3, 5696, 256, 32)}
 VIT_SHAPES = {"pbch": (8, 40),  # PBCH: 4 frame phases x 2 port hypotheses, MIB + CRC16
               "dl": (BATCH * 18, 44),  # 18 PDCCH candidates, DCI 1A + CRC16
               "ul": (BATCH, 38),  # one long CQI per subframe: 30 bits + CRC8, tail-biting
               "dci2": (BATCH * 18, 67),  # DCI 2 at 2 ports (51 bits) + CRC16
               "dci2a": (BATCH * 18, 64),  # DCI 2A at 2 ports (48 bits) + CRC16
               "dci2_4p": (BATCH * 20, 70),  # DCI 2 at 4 ports (54 bits), 20 candidates of 39 CCEs
-              "pbch4": (12, 40)}  # 4-port PBCH: 4 frame phases x 3 port hypotheses
+              "pbch4": (12, 40),  # 4-port PBCH: 4 frame phases x 3 port hypotheses
+              # phase 18 at 100 PRB, CFI 2: the common search (all 18 aligned
+              # L 4 and 8 candidates) for DCI 1A/0 (28 bits) and 1C (15 bits),
+              # the C-RNTI search (UE-specific + common, up to 22) for 1A/0 and
+              # for format 1 (39 bits, 16 UE-specific)
+              "stack_common": (18, 44), "stack_1c": (18, 31), "stack_crnti": (22, 44),
+              "stack_f1": (16, 55)}
 # The paths of the `kernels` line and the shape keys of their first SISO and
 # Viterbi launches; each kernel's top-level numbers are those of its main
 # path (MAIN_PATH).  The DL HARQ path's first launch is the DL shape (every
@@ -150,18 +176,19 @@ PATHS = {"dl_f32": ("dl", "dl"), "dl_bf16": ("dl", "dl"), "ul_f32": ("ul", "ul")
          "sm2_tm4": ("dl", "dci2"), "sm2_tm3": ("dl", "dci2a"), "sm4": ("dl", "dci2_4p"),
          "pmch": ("pmch", None), "dwpts": ("dwpts", None),
          "channel_epa5": ("epa", "dl"), "channel_eva70": ("eva", "dl"),
-         "channel_etu300": ("etu", "dl"), "rails": ("sf", "pbch")}
+         "channel_etu300": ("etu", "dl"), "rails": ("sf", "pbch"), "stack": ("stack", "pbch")}
 KERNEL_PATHS = {"siso_windowed": ("dl_f32", "ul_f32", "dl_harq", "blind", "sm2_tm4", "sm2_tm3",
                                   "sm4", "pmch", "dwpts", "channel_epa5", "channel_eva70",
-                                  "channel_etu300", "rails"),
+                                  "channel_etu300", "rails", "stack"),
                 "siso_windowed_bf16": ("dl_bf16", "ul_bf16", "channel_eva70"),
                 "viterbi_decode": ("dl_f32", "dl_bf16", "ul_f32", "ul_bf16", "blind", "sm2_tm4",
                                    "sm2_tm3", "sm4", "channel_epa5", "channel_eva70",
-                                   "channel_etu300", "rails")}
-# the main path of the latest slice (phase 16, EVA70); its 16-bit SISO
-# launches come from a second dispatch on the same noise draw
-MAIN_PATH = {"siso_windowed": "channel_eva70", "siso_windowed_bf16": "channel_eva70",
-             "viterbi_decode": "channel_eva70"}
+                                   "channel_etu300", "rails", "stack")}
+# the main path of the latest slice (phase 18, the full stack); it runs no
+# 16-bit SISO, whose numbers stay phase 16's (EVA70, a second dispatch on
+# the same noise draw)
+MAIN_PATH = {"siso_windowed": "stack", "siso_windowed_bf16": "channel_eva70",
+             "viterbi_decode": "stack"}
 
 # The spatial-multiplexing DL (phases 13-15, `SmChain`): both TBs at mcs 27
 # over all 25 RBGs; DCI 2 at 2 ports carries precoding information 2, TM4
@@ -298,6 +325,47 @@ RAILS_JAX = {"rails": (35, 30), "rails_hst": (27, 0)}
 # reference's own
 ARB_RATE, ARB_TEST_RATE, ARB_TONE, ARB_GUARD = 23.04 / 30.72, 0.876543, 0.02, 32
 ARB_JAX_EVM = 0.059153
+
+# The full stack (phase 18, the main path of the latest slice): EnbApp and
+# UeApp over the air, TTI by TTI, on one 20 MHz FDD cell (Cell(100 PRB, id
+# 42, 1 port), normal CP) with the apps' own conventions (CFI 2, the default
+# SIB2, mcs 5 for broadcast, the CQI-driven DCI 1 scheduler), the
+# subscribers of tests/test_e2e_stack.py and tests/test_multi_ue.py and a
+# clean channel, as the reference's full-stack tests run it:
+# A: attach, then STACK_BULK packets of STACK_BULK_BYTES each way (seeded
+#    bytes), queued at once; B: tests/test_multi_ue.py's two UEs (the second
+#    from STACK_UE2_START); C: tests/test_harq_feedback.py's forced CRC
+#    failure of the first DL data TB; D: tests/test_e2e_stack.py's release,
+#    page and reconnect.
+STACK_PRB = 100
+STACK_CELL_ID = 42
+STACK_OP = bytes.fromhex("cdc202d5123e20f62b6d676ac72cb318")
+STACK_SUBSCRIBERS = (("001010123456789", bytes.fromhex("465b5ce8b199b49faa5f0a2ee238a6bc")),
+                     ("001010000000001", bytes.fromhex("fec86ba6eb707ed08905757b1bb44b8f")))
+STACK_BULK = 64
+STACK_BULK_BYTES = 1400
+STACK_SEED = 18
+STACK_UE2_START = 80
+STACK_MAX_TTI = {"A": 600, "B": 500, "C": 300, "D": 400}
+# The TTI at which the JAX package's apps first reach each state of each
+# scenario, on the CPU (`python tests/rehearse_stack.py`, the same
+# `stack_scenario`); it delivers every packet of each, in order.  Phase 18
+# holds the port to each TTI.
+STACK_JAX = {
+    "A": {"mib": 0, "sib1": 5, "sib2": 15, "rach_sent": 20, "ra_done": 27, "rrc_connected": 33,
+          "drb": 55, "nas_attached": 65, "dl_first": 66, "rrc_reconfigured": 73, "dl_all": 76,
+          "ul_first": 78, "ul_all": 120},
+    "B": {"mib_1": 0, "sib1_1": 5, "sib2_1": 15, "rach_sent_1": 20, "ra_done_1": 27,
+          "rrc_connected_1": 33, "drb_1": 55, "nas_attached_1": 65, "dl_first_1": 66,
+          "dl_all_1": 66, "rrc_reconfigured_1": 73, "ul_first_1": 73, "ul_all_1": 73, "mib_2": 80,
+          "sib1_2": 85, "sib2_2": 95, "rach_sent_2": 100, "ra_done_2": 107,
+          "rrc_connected_2": 113, "drb_2": 135, "nas_attached_2": 145, "dl_first_2": 146,
+          "dl_all_2": 146, "rrc_reconfigured_2": 153, "ul_first_2": 153, "ul_all_2": 153},
+    "C": {"mib": 0, "sib1": 5, "sib2": 15, "rach_sent": 20, "ra_done": 27, "rrc_connected": 33,
+          "drb": 55, "nas_attached": 65, "nack": 66, "dl_first": 70, "dl_all": 70, "retx": 70},
+    "D": {"mib": 0, "sib1": 5, "sib2": 15, "rach_sent": 20, "ra_done": 27, "rrc_connected": 33,
+          "drb": 55, "nas_attached": 65, "release_sent": 65, "camped": 66, "paged": 69,
+          "reconnected": 77}}
 
 # (TBS, G, code blocks) of the 1-port DL deployment at each mcs that a phase
 # runs (phases 4-5: 27; phase 16: 20, 13, 6)
@@ -517,6 +585,42 @@ def check_siso(rng, B, K, L, T):
     return worst, (sys_, par, b0, pi)
 
 
+def check_short_siso(rng, B, K):
+    """Code blocks of K < 256 as the decoder runs them on the card
+    (`tdec._siso_full`: the SISO kernel as one window, L = K, T = 0)
+    against the full-length scan `tdec._siso` that the CPU runs, both on
+    the card: LLRs within 1e-4 of their scale (float32 without and with
+    renormalisation), signs equal; then 3-iteration turbo decodes on the
+    card and on the CPU: hard bits equal, and equal to the bits sent.
+    Returns the largest LLR difference over the scale."""
+    from srslte_tpu_torch.phy.fec import tdec, turbo
+
+    bits = rng.integers(0, 2, (B, K)).astype(np.uint8)
+    coded = turbo.turbo_encode(bits, K).to(F32)
+    sigma = 10 ** (-3.0 / 20)
+    noise = torch.as_tensor(rng.standard_normal(coded.shape, dtype=np.float32), device=coded.device)
+    llr = -((1 - 2 * coded) + sigma * noise) * (2 / sigma**2)
+    sys_, par1, _, (tx, tz), _ = tdec._split_dcat(llr, K)
+    n0 = read_counts()["siso_windowed"]
+    got = tdec._siso_full(sys_, par1, tx, tz)
+    check(read_counts()["siso_windowed"] == n0 + 1,
+          f"K={K}: the one-window pass did not launch the kernel")
+    ref = tdec._siso(sys_, par1, tx, tz)
+    scale = float(ref.abs().max())
+    err = float((got - ref).abs().max()) / scale
+    big = ref.abs() > 1e-4 * scale
+    check(err <= 1e-4 and bool(((got > 0) == (ref > 0))[big].all()),
+          f"one-window SISO B={B} K={K}: {err:.3g} of the scale from the full scan")
+    hard = tdec.turbo_decode(llr, K, n_iter=3)[0].cpu()
+    hard_cpu = tdec.turbo_decode(llr.cpu(), K, n_iter=3)[0]
+    check(bool((hard == hard_cpu).all()) and bool((hard.numpy() == bits).all()),
+          f"turbo decode K={K}: card and CPU hard bits differ, or differ from the bits sent")
+    print(f"[3 kernels] siso_windowed B={B} K={K} L={K} T=0 (one window) against tdec._siso on "
+          f"the card: max abs diff {err:.3g} of the scale {scale:.4g}, signs equal; 3-iteration "
+          f"turbo_decode hard bits equal to the CPU's and to the bits sent")
+    return err
+
+
 def phase_kernels():
     """Each kernel against its plain version on the card, at small and edge
     shapes and at the shape each path gives it; returns per kernel its largest
@@ -551,6 +655,10 @@ def phase_kernels():
             t = time_siso("siso_windowed", sys_, par, b0, pi, L, T)
             siso_t.update(dict.fromkeys(keys, t))
         del sys_, par, b0
+
+    # the full stack's code blocks of K < 256: the kernel as one window
+    # against the CPU's full-length scan, on the card, and whole decodes
+    short_err = max(check_short_siso(rng, 64, k) for k in (40, 80, 112, 144, 248))
 
     # --- SISO, 16 bits ----------------------------------------------------
     bf_err, bf_t = 0.0, {}
@@ -594,6 +702,8 @@ def phase_kernels():
                                     (*VIT_SHAPES["dci2"], (True,)), (*VIT_SHAPES["dci2a"], (True,)),
                                     (*VIT_SHAPES["dci2_4p"], (True,)),
                                     (*VIT_SHAPES["pbch4"], (True,)),
+                                    *((*VIT_SHAPES[k], (True,)) for k in
+                                      ("stack_common", "stack_1c", "stack_crnti", "stack_f1")),
                                     (1, 44, both), (77, 44, both),
                                     (3, 1, both), (viterbi_cuda.CANDIDATES_PER_BLOCK, 40, (True,)),
                                     (4, 704, both), (2, viterbi_cuda.max_length(True), (True,)),
@@ -636,7 +746,8 @@ def phase_kernels():
 
     common = {"route": "cuda", "source": "srslte_tpu_torch/csrc/tdec_siso.cu",
               "replaces": "srslte_tpu/ops/tdec_pallas.py:98", "library_ms": None}
-    return {"siso_windowed": {**common, "max_abs_err": siso_err, "_times": siso_t},
+    return {"siso_windowed": {**common, "max_abs_err": siso_err, "_times": siso_t,
+                              "one_window_vs_scan_rel_err": short_err},
             "siso_windowed_bf16": {**common, "max_abs_err": bf_err, "_times": bf_t},
             "viterbi_decode": {**common, "source": "srslte_tpu_torch/csrc/viterbi.cu",
                                "replaces": "srslte_tpu/ops/viterbi_pallas.py:58",
@@ -2321,10 +2432,351 @@ def phase_rails(capture, profile=False):
     return counts
 
 
+# ------------------------------------------------------------ the full stack
+def stack_port(device="cuda"):
+    """The port's full-stack entry points, for `stack_scenario`, on `device`."""
+    from srslte_tpu_torch import enb, ue, ue_stack
+    from srslte_tpu_torch.epc import Hss, Mme, Spgw
+    from srslte_tpu_torch.phy.common.params import Cell
+    from srslte_tpu_torch.phy.phch import pdsch
+    from srslte_tpu_torch.security.milenage import compute_opc
+
+    return types.SimpleNamespace(
+        EnbApp=functools.partial(enb.EnbApp, device=device),
+        UeApp=functools.partial(ue.UeApp, device=device), UeNas=ue_stack.UeNas,
+        SoftUsim=ue_stack.SoftUsim, Hss=Hss, Mme=Mme, Spgw=Spgw, Cell=Cell,
+        compute_opc=compute_opc, Pdsch=pdsch.Pdsch,
+        crc_fail=lambda ok: torch.zeros_like(torch.as_tensor(ok), dtype=torch.bool))
+
+
+def stack_packets(n, seed):
+    """n packets of STACK_BULK_BYTES seeded bytes."""
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, 256, STACK_BULK_BYTES, dtype=np.uint8).tobytes() for _ in range(n)]
+
+
+def stack_scenario(name, pkg, call=None, bulk_hooks=None):
+    """Scenario `name` (A-D, see STACK_PRB) of phase 18 on the package
+    `pkg` (`stack_port`, or the JAX package's classes in
+    tests/rehearse_stack.py).  call(label, fn, *args) makes each of the four
+    per-TTI calls (default: a plain call); bulk_hooks (start, stop) are
+    called when scenario A queues its bulk and when the bulk has all
+    arrived.  Returns (the first TTI at which
+    each state was reached, the TTIs run, the gates as {name: bool}, counts
+    for the report)."""
+    call = call or (lambda label, fn, *args: fn(*args))
+    subs = STACK_SUBSCRIBERS[: 2 if name == "B" else 1]
+    cell = pkg.Cell(n_prb=STACK_PRB, id=STACK_CELL_ID, nof_ports=1)
+    hss = pkg.Hss()
+    for imsi, k in subs:
+        hss.add_subscriber(imsi, k, op=STACK_OP)
+    mme = pkg.Mme(hss, pkg.Spgw())
+    enb = pkg.EnbApp(cell, mme=mme)
+    ues = [pkg.UeApp(cell, pkg.UeNas(pkg.SoftUsim(imsi, k, pkg.compute_opc(k, STACK_OP))))
+           for imsi, k in subs]
+    starts = (0, STACK_UE2_START)
+    cc = enb.ccs[cell.id]
+    first = {}
+    sent = [None] * len(ues)  # (UL packets, DL packets) once queued
+    counts = {"nack_armed": 0, "retx_queued": 0, "queued_tti": None}
+    corrupt = {"on": False}
+    state = {"released": False, "paged": False, "old_crnti": 0}
+    real_decode = pkg.Pdsch.decode
+
+    def flaky_decode(self, grid, ce, noise, **kw):
+        bits, ok = real_decode(self, grid, ce, noise, **kw)
+        return (bits, pkg.crc_fail(ok)) if corrupt["on"] else (bits, ok)
+
+    def mark(event, cond, tti):
+        if cond and event not in first:
+            first[event] = tti
+
+    def ctx(ue):
+        return enb.ues.get(ue.crnti) if ue.crnti else None
+
+    if name == "C":
+        pkg.Pdsch.decode = flaky_decode
+    try:
+        for tti in range(STACK_MAX_TTI[name]):
+            dl = call("enb.tx_subframe", enb.tx_subframe, tti)
+            uls = []
+            for i, ue in enumerate(ues):
+                if tti < starts[i]:
+                    continue
+                call("ue.rx_subframe", ue.rx_subframe, dl, tti)
+                if ue.pending_ack.get(tti + 4, (None, None))[1] == 0:
+                    counts["nack_armed"] += 1
+                ul = call("ue.tx_subframe", ue.tx_subframe, tti)
+                if ul is not None:
+                    uls.append(ul)
+            ul = uls[0] + uls[1] if len(uls) == 2 else (uls[0] if uls else None)
+            call("enb.rx_subframe", enb.rx_subframe, ul, tti)
+            counts["retx_queued"] += len(cc.dl_retx)
+            for i, ue in enumerate(ues):
+                sfx = f"_{i + 1}" if len(ues) > 1 else ""
+                c = ctx(ue)
+                for event, cond in (("mib", ue.mib is not None), ("sib1", ue.sib1 is not None),
+                                    ("sib2", ue.sib2 is not None),
+                                    ("rach_sent", ue.state == "rach_sent"),
+                                    ("ra_done", ue.state == "connected"),
+                                    ("rrc_connected", c is not None
+                                     and c.rrc_state == "connected"),
+                                    ("nas_attached", ue.nas.state == "attached"),
+                                    ("drb", ue.pdcp_drb is not None),
+                                    ("rrc_reconfigured", c is not None
+                                     and c.rrc_state == "rrc_reconfigured")):
+                    mark(event + sfx, cond, tti)
+                if (name != "D" and ue.nas.state == "attached" and ue.pdcp_drb is not None
+                        and sent[i] is None):
+                    if name == "A":
+                        sent[i] = (stack_packets(STACK_BULK, STACK_SEED),
+                                   stack_packets(STACK_BULK, STACK_SEED + 1))
+                        counts["queued_tti"] = tti
+                        if bulk_hooks:
+                            bulk_hooks[0]()
+                    elif name == "B":
+                        sent[i] = ([f"ul-ping-{i + 1}".encode()], [f"dl-pong-{i + 1}".encode()])
+                    else:
+                        sent[i] = ([], [b"harq-payload"])
+                        corrupt["on"] = True  # the next DL data TB fails its CRC
+                    for p in sent[i][0]:
+                        ue.send_data(p)
+                    for p in sent[i][1]:
+                        enb.send_data(ue.crnti, p)
+                if sent[i] is not None:
+                    got_ul = c.rx_data if c is not None else []
+                    mark("dl_first" + sfx, len(ue.rx_data) > 0, tti)
+                    mark("dl_all" + sfx, len(ue.rx_data) >= len(sent[i][1]), tti)
+                    if sent[i][0]:
+                        mark("ul_first" + sfx, len(got_ul) > 0, tti)
+                        mark("ul_all" + sfx, len(got_ul) >= len(sent[i][0]), tti)
+            if name == "C":
+                mark("nack", counts["nack_armed"] > 0, tti)
+                mark("retx", counts["retx_queued"] > 0, tti)
+                if "nack" in first:
+                    corrupt["on"] = False  # one NACK is enough: let the retx decode
+            if name == "D":
+                ue = ues[0]
+                c = ctx(ue)
+                if (ue.nas.state == "attached" and not state["released"] and c is not None
+                        and c.rrc_state in ("secure", "rrc_reconfigured")):
+                    enb.release_connection(c)
+                    state.update(released=True, old_crnti=ue.crnti)
+                    mark("release_sent", True, tti)
+                if state["released"] and ue.state == "camped" and not state["paged"]:
+                    enb.release_ue(enb.ues[state["old_crnti"]])
+                    enb.page(ue.nas.guti)
+                    state["paged"] = True
+                    mark("camped", True, tti)
+                mark("paged", ue.paged > 0, tti)
+                if state["paged"] and ue.paged and ue.state == "connected":
+                    mark("reconnected", True, tti)
+                    break
+            elif all(s is not None for s in sent) and all(
+                    f"{d}_all{f'_{i + 1}' if len(ues) > 1 else ''}" in first
+                    for i in range(len(ues)) for d, n in (("dl", 1), ("ul", 0)) if sent[i][n]):
+                if name == "A" and bulk_hooks:
+                    bulk_hooks[1]()
+                break
+    finally:
+        pkg.Pdsch.decode = real_decode
+    return first, tti + 1, stack_gates(name, ues, enb, mme, sent, counts), counts
+
+
+def stack_gates(name, ues, enb, mme, sent, counts):
+    """The gates of a phase 18 scenario: the reference's full-stack
+    assertions, and every packet delivered once, in order, to its own UE."""
+    g = {}
+    for i, ue in enumerate(ues):
+        sfx = f"_{i + 1}" if len(ues) > 1 else ""
+        c = enb.ues.get(ue.crnti) if ue.crnti else None
+        g["mib_sib1_sib2" + sfx] = (ue.mib is not None and ue.sib1 is not None
+                                    and ue.sib2 is not None)
+        g["connected" + sfx] = ue.state == "connected"
+        if name == "D":  # reconnected: its NAS attaches anew over the new connection
+            continue
+        g["attached" + sfx] = ue.nas.state == "attached" and str(ue.nas.ip).startswith(
+            "172.16.0.")
+        g["nas_keys" + sfx] = (c is not None
+                               and ue.nas.sec.k_int == mme.ues[c.ue_id].sec.k_int)
+        if sent[i] is not None:
+            g["dl_in_order" + sfx] = ue.rx_data == sent[i][1]
+            g["ul_in_order" + sfx] = c is not None and c.rx_data == sent[i][0]
+        else:
+            g["data_queued" + sfx] = False
+    if name == "B":
+        g["distinct_crnti"] = ues[0].crnti != ues[1].crnti
+    if name == "A":
+        g["no_nack_no_retx"] = counts["nack_armed"] == 0 and counts["retx_queued"] == 0
+    if name == "C":
+        g["nack_and_retx"] = counts["nack_armed"] > 0 and counts["retx_queued"] > 0
+    if name == "D":
+        g["paged_and_reconnected"] = bool(ues[0].paged >= 1 and ues[0].crnti
+                                          and ues[0].crnti in enb.ues)
+    return g
+
+
+def stack_timer(times, tti_end):
+    """call(label, fn, *args) for `stack_scenario` on the card: each call
+    synchronised and timed on the host clock (ms into times[label]); the
+    host time at the end of each TTI (its last call, EnbApp.rx_subframe)
+    into tti_end."""
+    def call(label, fn, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        times.setdefault(label, []).append((t1 - t0) * 1e3)
+        if label == "enb.rx_subframe":
+            tti_end.append(t1)
+        return out
+    return call
+
+
+def launch_recorder(by_shape):
+    """wrap for `wrapped` over the kernels' `_launch` functions: every
+    launch adds one to by_shape[(kernel, shape)]."""
+    def wrap(fn, name):
+        def call(*args):
+            if name == "siso":
+                x, L, T = args[1], args[4], args[5]
+                key = ("siso_windowed_bf16" if x.dtype == BF16 else "siso_windowed",
+                       f"B={x.shape[0]} K={x.shape[1]} L={L} T={T}")
+            else:
+                key = ("viterbi_decode", f"B={args[1].shape[0]} len={args[2]} "
+                                         f"tail_biting={bool(args[3])}")
+            by_shape[key] += 1
+            return fn(*args)
+        return call
+    return wrap
+
+
+def table_cache():
+    """(entries, MB) of the port's cache of device tables."""
+    from srslte_tpu_torch import _device
+
+    return len(_device._TABLES), sum(t.numel() * t.element_size()
+                                     for t in _device._TABLES.values()) / 1e6
+
+
+def phase_stack(smi, profile=False):
+    """The full stack at 20 MHz (see STACK_PRB): scenarios A-D through
+    EnbApp and UeApp on the card, gated on the reference's assertions, on
+    every packet delivered once and in order to its own UE, and on the TTI
+    at which each state is first reached equalling the JAX package's
+    (STACK_JAX).  Scenario A is the stack path's counted run.  Returns its
+    kernel launch counts."""
+    from srslte_tpu_torch.ops import tdec_cuda, viterbi_cuda
+
+    hooks = ((tdec_cuda, "_launch", "siso"), (viterbi_cuda, "_launch", "viterbi"))
+    pkg = stack_port()
+    counts_a = None
+    for name in "ABCD":
+        times, tti_end, by_shape = {}, [], collections.Counter()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        prof = None
+        if name == "A":
+            reset_counts()
+            if profile:
+                from torch.profiler import ProfilerActivity
+                prof = torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                                          ProfilerActivity.CUDA])
+        bulk = {}
+        t0 = time.perf_counter()
+        with wrapped(hooks, launch_recorder(by_shape)):
+            if name == "C":  # untimed: its host synchronisations are counted
+                (first, ttis, gates, counts), n_sync, _ = count_syncs(
+                    lambda: stack_scenario(name, pkg), ())
+            else:
+                first, ttis, gates, counts = stack_scenario(
+                    name, pkg, stack_timer(times, tti_end),
+                    bulk_hooks=None if prof is None else (
+                        lambda: (prof.start(), bulk.update(t0=time.perf_counter())),
+                        lambda: (torch.cuda.synchronize(), bulk.update(t1=time.perf_counter()),
+                                 prof.stop())))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if name == "A":
+            counts_a = read_counts()
+            for k in ("siso_windowed", "viterbi_decode"):
+                check(counts_a[k] > 0, f"the full stack did not launch the {k} kernel")
+            short = sum(n for (k, shp), n in by_shape.items()
+                        if k == "siso_windowed" and shp.endswith(" T=0"))
+            check(short > 0, "no code block of K < 256 went through the SISO kernel")
+        peak = torch.cuda.max_memory_allocated()
+        n_tab, mb_tab = table_cache()
+        failed = [g for g, ok in gates.items() if not ok]
+        check(not failed, f"full stack, scenario {name}: gates failed: {failed}")
+        want = STACK_JAX[name]
+        diff = {k: (first.get(k), want.get(k)) for k in set(first) | set(want)
+                if first.get(k) != want.get(k)}
+        check(not diff, f"full stack, scenario {name}: first TTI per state differs from the "
+                        f"JAX package's (port, JAX): {diff}")
+        print(f"[18 full stack, {name}] {ttis} TTIs in {wall:.2f} s of wall time; every gate "
+              f"passed ({', '.join(gates)}); first TTI per state {first}, equal to the JAX "
+              f"package's; counts {counts}", flush=True)
+        print(f"[18 full stack, {name}] peak device memory {peak / 1e6:.1f} MB "
+              f"({(peak - before) / 1e6:.1f} MB above what was allocated before); table cache "
+              f"{n_tab} entries, {mb_tab:.2f} MB; {smi}", flush=True)
+        for label, ms in times.items():
+            print(f"[18 full stack, {name}] {label}: {len(ms)} calls, ms median "
+                  f"{float(np.median(ms)):.3f}, p99 {float(np.percentile(ms, 99)):.3f}, "
+                  f"max {max(ms):.3f} (LTE's TTI: 1 ms)", flush=True)
+        if name == "C":
+            print(f"[18 full stack, C] host synchronisations (CUDA sync debug mode): {n_sync} in "
+                  f"{ttis} TTIs = {n_sync / ttis:.2f} per TTI", flush=True)
+        if "nas_attached" in first and tti_end:
+            print(f"[18 full stack, {name}] attach: {first['nas_attached'] + 1} TTIs, "
+                  f"{tti_end[first['nas_attached']] - t0:.2f} s of wall time (tables built and "
+                  f"uploaded on first use in scenario A)", flush=True)
+        if name == "A":
+            q = counts["queued_tti"]
+            n_bits = STACK_BULK * STACK_BULK_BYTES * 8
+            dl_t, ul_t = first["dl_all"] - q, first["ul_all"] - q
+            print(f"[18 full stack, A] bulk: {STACK_BULK} x {STACK_BULK_BYTES} bytes each way "
+                  f"queued at TTI {q}; DL all delivered {dl_t} TTIs later = "
+                  f"{n_bits / dl_t:.0f} bits per TTI, UL {ul_t} TTIs later = "
+                  f"{n_bits / ul_t:.0f} bits per TTI; wall "
+                  f"{tti_end[first['dl_all']] - tti_end[q]:.2f} s for the DL bulk", flush=True)
+            per = sorted(by_shape.items(), key=lambda kv: -kv[1])
+            print(f"[18 full stack, A] kernel launches {counts_a}: per TTI, by shape: "
+                  + "; ".join(f"{k} {shp}: {n} ({n / ttis:.3f} per TTI)" for (k, shp), n in per),
+                  flush=True)
+            if prof is not None:
+                stack_profile(prof, (bulk["t1"] - bulk["t0"]) * 1e3)
+    return counts_a
+
+
+def stack_profile(prof, wall_ms):
+    """The device's busy share and top kernels over scenario A's bulk window."""
+    rows, busy_us = device_rows(prof)
+    print(f"[profile full stack, A bulk] {wall_ms:.1f} ms on the host clock (with the profiler's "
+          f"overhead): {sum(r[1] for r in rows)} kernels and copies, device busy "
+          f"{busy_us / 1e3:.2f} ms, idle share {100 - 100 * busy_us / (wall_ms * 1e3):.1f} %")
+    for us, count, key in rows[:14]:
+        print(f"[profile full stack, A bulk]   {us / 1e3:8.3f} ms  {count:6d} x  {key[:90]}")
+    sys.stdout.flush()
+
+
+def device_rows(prof):
+    """(rows (device us, count, name) by time, busy us) of a profile's
+    kernel events: an operator's row repeats the time of its kernels."""
+    from torch.autograd import DeviceType
+
+    rows = sorted(((k.self_device_time_total, k.count, k.key) for k in prof.key_averages()
+                   if k.device_type == DeviceType.CUDA and k.self_device_time_total > 0),
+                  reverse=True)
+    busy_us = sum(r[0] for r in rows)
+    check(busy_us > 0, "the profiler saw no device time")
+    return rows, busy_us
+
+
 def phase_profile(label, run, dispatch_ms):
     """One dispatch (`run()`) under torch.profiler: the device's kernel time
     by name, and its share of an unprofiled dispatch (`dispatch_ms`)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -2333,12 +2785,7 @@ def phase_profile(label, run, dispatch_ms):
         run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    # kernel events only: an operator's row repeats the time of its kernels
-    rows = sorted(((k.self_device_time_total, k.count, k.key) for k in prof.key_averages()
-                   if k.device_type == DeviceType.CUDA and k.self_device_time_total > 0),
-                  reverse=True)
-    busy_us = sum(r[0] for r in rows)
-    check(busy_us > 0, "the profiler saw no device time")
+    rows, busy_us = device_rows(prof)
     print(f"[profile {label}] one dispatch under the profiler ({wall_us / 1e3:.2f} ms on the host "
           f"clock with its overhead): {sum(r[1] for r in rows)} kernels and copies, device busy "
           f"{busy_us / 1e3:.2f} ms = {100 * busy_us / (dispatch_ms * 1e3):.1f} % of an unprofiled "
@@ -2420,9 +2867,11 @@ def main():
     lap("16 channel")
     counts_rails = phase_rails(capture, profile)
     lap("17 rails")
+    counts_stack = phase_stack(smi, profile)
+    lap("18 full stack")
     counts = {"dl_f32": counts_dl, "dl_bf16": counts_dl16, **counts_ul, "dl_harq": counts_harq,
               "blind": counts_blind, **counts_sm2, **counts_sm4, **counts_rest, **counts_channel,
-              "rails": counts_rails}
+              "rails": counts_rails, "stack": counts_stack}
     print(f"[wall] seconds per phase: {', '.join(f'{k} {v:.1f}' for k, v in walls.items())}; "
           f"total {time.perf_counter() - t_all:.1f}", flush=True)
     line = []

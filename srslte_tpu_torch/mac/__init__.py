@@ -1,0 +1,1 @@
+from .pdu import MacPdu, MacSubPdu, RarPdu, Rar, DL_LCID, UL_LCID

@@ -5,7 +5,9 @@ Reference behavior: lib/src/phy/fec/turbo/{turbodecoder.c, turbodecoder_sse.c}
 throughput comes from decoding many code blocks per dispatch, matching how
 the C library batches CBs per transport block (sch.c:391-446).  Code blocks
 of K >= 256 are decoded in windows by the CUDA kernel behind
-`ops.tdec_cuda.siso_windowed`; shorter ones by the full-length scan `_siso`.
+`ops.tdec_cuda.siso_windowed`; shorter ones in one full-length pass
+(`_siso_full`): on the card the same kernel as ONE window of L = K with no
+training halo, on the CPU the plain scan `_siso`.
 
 LLR convention: positive => bit 1 (matches demod_soft.c, scrambling flips).
 Trellis tables from turbo.trellis_tables(); tail handling terminates each
@@ -116,6 +118,23 @@ def _siso(sys_apr, par, tail_x, tail_z):
         nb = (b[:, nxt_j] + g).max(dim=1).values
         b = nb - nb.max(dim=-1, keepdim=True).values
     return llr
+
+
+def _siso_full(sys_apr, par, tail_x, tail_z):
+    """One full-length max-log-MAP pass: LLRs [B, K] (K < 256).
+
+    A CUDA tensor goes to the SISO kernel as one window over the whole code
+    block (L = K, T = 0): window 0 is also the last, so alpha starts in state
+    0 and beta from the tail, which is what `_siso` computes.  The metrics
+    are float32 and not renormalised (K < 256 steps stay far inside its
+    range), so the LLRs equal `_siso`'s up to float32 rounding.  A CPU
+    tensor goes to `_siso`.
+    """
+    if sys_apr.device.type == "cpu":
+        return _siso(sys_apr, par, tail_x, tail_z)
+    K = sys_apr.shape[-1]
+    return siso_windowed(sys_apr.contiguous(), par.contiguous(), _tail_beta(tail_x, tail_z),
+                         L=K, T=0)
 
 
 def _siso_windowed(sys_apr, par, tail_x, tail_z, L: int, T: int):
@@ -313,14 +332,14 @@ def turbo_decode(dcat_llr, k: int, n_iter: int = 5, window: int | None = 0,
     dcat layout per turbo.turbo_encode_np.
     window: max-log-MAP window length (K need not divide it); 0 = auto
     (windowed for K >= 256, sequential depth L+32 instead of K); None =
-    full-length scans.
+    full-length passes (`_siso_full`).
     apr0: optional decoder-1 a-priori state [B, K] from a previous call, a
     WARM START: `turbo_decode(x, k, m, apr0=s)` after `..., n, return_state
     =True` equals a single (n+m)-iteration decode (the C library's
     early-stopping decoder keeps iterating the same state, tdec run_all).
     return_state: also return the apr state for later resumption.
     siso_dtype: the windowed path's working dtype (`turbo_start`); the
-    full-length scans are float32 always.
+    full-length passes are float32 always.
     """
     dcat_llr = as_tensor(dcat_llr, device, torch.float32)
     if window == 0:
@@ -340,10 +359,10 @@ def turbo_decode(dcat_llr, k: int, n_iter: int = 5, window: int | None = 0,
         apr1 = torch.zeros_like(sys) if apr0 is None else apr0
         post = sys
         for _ in range(n_iter):
-            llr1 = _siso(sys + apr1, par1, t1x, t1z)
+            llr1 = _siso_full(sys + apr1, par1, t1x, t1z)
             ext1 = llr1 - sys - apr1
             in2 = (sys + ext1)[..., pi]
-            llr2 = _siso(in2, par2, t2x, t2z)
+            llr2 = _siso_full(in2, par2, t2x, t2z)
             ext2 = llr2 - in2
             apr1 = ext2[..., pi_inv]
             # llr2 deinterleaved = sys + ext1 + ext2: the full posterior

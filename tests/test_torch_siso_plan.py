@@ -10,12 +10,16 @@ block size at the window the decoder gives it and for the shapes the tests and
 `chip_smoke.py` run.
 """
 
+import numpy as np
 import pytest
 import torch
 
 from srslte_tpu_torch.ops import tdec_cuda
 from srslte_tpu_torch.phy.fec.cbsegm import cb_sizes
+from srslte_tpu_torch.phy.fec import tdec, turbo
 from srslte_tpu_torch.phy.fec.tdec import default_window
+
+torch.set_num_threads(1)  # several test workers share the machine's cores
 
 BATCHES = (1, 3, 128 * 11, 128 * 12)  # one block, a few, a DL and a UL dispatch
 GROUPS = tdec_cuda.GROUPS_PER_BLOCK
@@ -99,3 +103,44 @@ def test_shape_that_does_not_fit_is_refused(dtype):
     got = tdec_cuda.siso_windowed(x, x.flip(1).contiguous(), torch.zeros((1, 8), dtype=dtype),
                                   1700, 0)
     assert got.shape == (1, 1700) and bool(torch.isfinite(got.float()).all())
+
+
+# ------------------------------------------------ short code blocks (K < 256)
+SHORT_K = tuple(k for k in cb_sizes() if k < 256)
+
+
+def test_plan_one_window_every_short_block():
+    """A code block of K < 256 goes to the kernel on the card as ONE window
+    of L = K with no training halo (`tdec._siso_full`): the plan takes it for
+    every such K of the LTE table, float32 (the full-length pass is float32
+    whatever the decoder's SISO numerics), one window per code block."""
+    assert len(SHORT_K) == 27 and SHORT_K[0] == 40 and SHORT_K[-1] == 248
+    for k in SHORT_K:
+        for B in BATCHES:
+            plan = assert_plan_covers(B, k, k, 0, False)
+            assert plan.windows == B
+
+
+@pytest.mark.parametrize("k,snr_db", [(40, 0.0), (112, 8.0), (248, 0.0)])
+def test_one_window_pass_equals_full_scan(k, snr_db):
+    """The kernel's plain version as one window (L = K, T = 0: alpha from
+    state 0, beta from the tail, float32 without renormalisation) against
+    the full-length scan `_siso` that the CPU runs (renormalised every
+    step): the LLRs of a first-decoder pass to 1e-4 of their scale, the
+    signs equal.  On the card the kernel equals its plain version by value
+    (`chip_smoke.py` phase 3)."""
+    rng = np.random.default_rng(k)
+    bits = rng.integers(0, 2, (8, k)).astype(np.uint8)
+    coded = turbo.turbo_encode(torch.as_tensor(bits), k).to(torch.float32)
+    sigma = 10 ** (-snr_db / 20)
+    noise = torch.as_tensor(rng.standard_normal(coded.shape, dtype=np.float32))
+    llr = -((1 - 2 * coded) + sigma * noise) * (2 / sigma**2)
+    sys_, par1, _, (tx, tz), _ = tdec._split_dcat(llr, k)
+    ref = tdec._siso(sys_, par1, tx, tz)
+    got = tdec_cuda.siso_windowed_plain(sys_.contiguous(), par1.contiguous(),
+                                        tdec._tail_beta(tx, tz), k, 0)
+    scale = float(ref.abs().max())
+    assert float((got - ref).abs().max()) <= 1e-4 * scale
+    np.testing.assert_array_equal((got > 0).numpy(), (ref > 0).numpy())
+    # the CPU keeps the scan
+    np.testing.assert_array_equal(tdec._siso_full(sys_, par1, tx, tz).numpy(), ref.numpy())
