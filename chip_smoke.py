@@ -76,7 +76,18 @@ subframes, with the peak device memory of one dispatch per path:
   reconnect; every state at the TTI the JAX package reaches it
   (tests/rehearse_stack.py), every packet once and in order to its own UE;
   ms per call of the four per-TTI entry points, host synchronisations per
-  TTI, memory, the device-table cache and kernel launches by shape.
+  TTI, memory, the device-table cache and kernel launches by shape;
+- (phase 19, the main path of the latest slice) the full stack over the S1
+  wire: phase 18's cell and first subscriber, EnbApp(s1=...) speaking S1AP
+  (SCTP, or framed TCP where the kernel has none) to the port's EpcApp,
+  whose MME drives the S/P-GW over GTP-C on S11, user data as GTP-U G-PDUs
+  on S1-U to SGi; S1-A attaches and moves 64 packets of 1400 bytes each way
+  between the UE and SGi, S1-R releases the UE over S1 and sends one packet
+  from it; the S1AP procedures and every state at the JAX package's
+  (tests/rehearse_s1.py), every packet once and in order, the release on
+  both ends; ms per call of the five per-TTI calls (epc.step among them),
+  S1AP and GTP-U PDUs per direction, host synchronisations per TTI, memory,
+  the table cache after S1-A and S1-R and kernel launches by shape.
 
 Exits non-zero on any failure, and when there is no CUDA device.  The line
 before the last is the card's name and power limit; the last line is
@@ -85,7 +96,8 @@ before the last is the card's name and power limit; the last line is
 `python3 chip_smoke.py --profile` adds one DL and one UL dispatch, one HARQ
 round, one UL-control dispatch, one blind receive, one 2x2 and one 4x4 SM
 dispatch, one EVA70 channel + decode dispatch, the rails' blind receive and
-the full stack's bulk window (scenario A) under `torch.profiler` and prints
+the full stack's bulk windows (scenario A, and S1-A over the wire) under
+`torch.profiler` and prints
 the device's busy share and the kernels that take most of its time.  The line before the kernels line
 gives each phase's wall time and the total.
 """
@@ -148,7 +160,12 @@ SISO_SHAPES = {"dl": (BATCH * 11, 5824, 256, 32),  # 11 code blocks of K 5824 pe
                # 248; then scenario A's largest DL and UL code blocks
                "stack": (1, 144, 144, 0), "stack_rar80": (1, 80, 80, 0),
                "stack_rar112": (1, 112, 112, 0), "stack_sib2": (1, 248, 248, 0),
-               "stack_dl_max": (13, 5824, 256, 32), "stack_ul_max": (3, 5696, 256, 32)}
+               "stack_dl_max": (13, 5824, 256, 32), "stack_ul_max": (3, 5696, 256, 32),
+               # phase 19, the full stack over the S1 wire: the other code
+               # block sizes its TBs give (phase 19 checks that every (K, L,
+               # T) it launches is held here)
+               "s1_k280": (1, 280, 128, 32), "s1_k704": (1, 704, 128, 32),
+               "s1_k3008": (1, 3008, 256, 32), "s1_k4800": (2, 4800, 256, 32)}
 VIT_SHAPES = {"pbch": (8, 40),  # PBCH: 4 frame phases x 2 port hypotheses, MIB + CRC16
               "dl": (BATCH * 18, 44),  # 18 PDCCH candidates, DCI 1A + CRC16
               "ul": (BATCH, 38),  # one long CQI per subframe: 30 bits + CRC8, tail-biting
@@ -176,19 +193,20 @@ PATHS = {"dl_f32": ("dl", "dl"), "dl_bf16": ("dl", "dl"), "ul_f32": ("ul", "ul")
          "sm2_tm4": ("dl", "dci2"), "sm2_tm3": ("dl", "dci2a"), "sm4": ("dl", "dci2_4p"),
          "pmch": ("pmch", None), "dwpts": ("dwpts", None),
          "channel_epa5": ("epa", "dl"), "channel_eva70": ("eva", "dl"),
-         "channel_etu300": ("etu", "dl"), "rails": ("sf", "pbch"), "stack": ("stack", "pbch")}
+         "channel_etu300": ("etu", "dl"), "rails": ("sf", "pbch"), "stack": ("stack", "pbch"),
+         "s1": ("stack", "pbch")}
 KERNEL_PATHS = {"siso_windowed": ("dl_f32", "ul_f32", "dl_harq", "blind", "sm2_tm4", "sm2_tm3",
                                   "sm4", "pmch", "dwpts", "channel_epa5", "channel_eva70",
-                                  "channel_etu300", "rails", "stack"),
+                                  "channel_etu300", "rails", "stack", "s1"),
                 "siso_windowed_bf16": ("dl_bf16", "ul_bf16", "channel_eva70"),
                 "viterbi_decode": ("dl_f32", "dl_bf16", "ul_f32", "ul_bf16", "blind", "sm2_tm4",
                                    "sm2_tm3", "sm4", "channel_epa5", "channel_eva70",
-                                   "channel_etu300", "rails", "stack")}
-# the main path of the latest slice (phase 18, the full stack); it runs no
-# 16-bit SISO, whose numbers stay phase 16's (EVA70, a second dispatch on
-# the same noise draw)
-MAIN_PATH = {"siso_windowed": "stack", "siso_windowed_bf16": "channel_eva70",
-             "viterbi_decode": "stack"}
+                                   "channel_etu300", "rails", "stack", "s1")}
+# the main path of the latest slice (phase 19, the full stack over the S1
+# wire, whose first launches are phase 18's); it runs no 16-bit SISO, whose
+# numbers stay phase 16's (EVA70, a second dispatch on the same noise draw)
+MAIN_PATH = {"siso_windowed": "s1", "siso_windowed_bf16": "channel_eva70",
+             "viterbi_decode": "s1"}
 
 # The spatial-multiplexing DL (phases 13-15, `SmChain`): both TBs at mcs 27
 # over all 25 RBGs; DCI 2 at 2 ports carries precoding information 2, TM4
@@ -366,6 +384,41 @@ STACK_JAX = {
     "D": {"mib": 0, "sib1": 5, "sib2": 15, "rach_sent": 20, "ra_done": 27, "rrc_connected": 33,
           "drb": 55, "nas_attached": 65, "release_sent": 65, "camped": 66, "paged": 69,
           "reconnected": 77}}
+
+# Phase 19 (`s1_scenario`): phase 18's cell, conventions and first
+# subscriber with the core behind the wire protocols of srsRAN's srsENB <->
+# srsEPC deployment (tests/test_s1_wire.py: s1ap.cc:33, mme_gtpc.cc,
+# spgw/gtpu.cc:105): EnbApp(s1=...) speaks S1AP over SCTP (framed TCP where
+# the kernel has no SCTP) to the MME of the EpcApp in the same process, the
+# MME drives the S/P-GW over GTP-C on S11, user data crosses S1-U as GTP-U
+# G-PDUs, SGi is `sgi_tx` and `spgw.send_dl`.  S1-A: the attach, then
+# STACK_BULK packets of STACK_BULK_BYTES each way; S1-R: the eNB's
+# UEContextReleaseRequest (EnbS1.release_request), then one UL packet from
+# the released UE.
+S1_MAX_TTI = 600
+S1_RECONNECT_TTIS = 100  # TTIs the released UE's packet may take to reach SGi
+S1_RECONNECT_PACKET = b"s1-reconnect"
+S1_S11_TIMEOUT = 2.0  # seconds the MME waits for the S/P-GW on S11
+
+# The JAX package's apps through its own EpcApp on the same scenario, on
+# the CPU (`python tests/rehearse_s1.py`, two runs that agree on every
+# value): the first TTI of each state and the S1AP procedures in the order
+# they crossed the association.
+# It delivers every packet of the bulk, in order; the released UE's packet
+# never reaches SGi (no "reconnect_ul"): its eNB drops the context on the
+# S1 release without an RRC release, so the UE stays connected to nothing.
+S1_JAX = {
+    "first": {"mib": 0, "s1_setup": 1, "sib1": 5, "sib2": 15, "rach_sent": 20, "ra_done": 27,
+              "rrc_connected": 33, "ics": 54, "drb": 55, "nas_attached": 65,
+              "bearer_modified": 65, "dl_first": 67, "rrc_reconfigured": 73, "dl_all": 76,
+              "ul_first": 78, "ul_all": 120, "release_requested": 120, "enb_released": 122,
+              "mme_released": 122, "session_deleted": 122, "reconnect_sent": 122},
+    "procedures": ("ul:s1_setup_request", "dl:s1_setup_response", "ul:initial_ue_message",
+                   "dl:downlink_nas_transport", "ul:uplink_nas_transport",
+                   "dl:downlink_nas_transport", "ul:uplink_nas_transport",
+                   "dl:initial_context_setup_request", "ul:initial_context_setup_response",
+                   "ul:uplink_nas_transport", "ul:ue_context_release_request",
+                   "dl:ue_context_release_command", "ul:ue_context_release_complete")}
 
 # (TBS, G, code blocks) of the 1-port DL deployment at each mcs that a phase
 # runs (phases 4-5: 27; phase 16: 20, 13, 6)
@@ -2653,11 +2706,13 @@ def launch_recorder(by_shape):
 
 
 def table_cache():
-    """(entries, MB) of the port's cache of device tables."""
+    """(entries, MB) of the port's shared device tables, then of its per-UE
+    sequences (`_device.sequence`, bounded)."""
     from srslte_tpu_torch import _device
 
-    return len(_device._TABLES), sum(t.numel() * t.element_size()
-                                     for t in _device._TABLES.values()) / 1e6
+    def size(d):
+        return len(d), sum(t.numel() * t.element_size() for t in d.values()) / 1e6
+    return size(_device._TABLES) + size(_device._SEQUENCES)
 
 
 def phase_stack(smi, profile=False):
@@ -2707,7 +2762,7 @@ def phase_stack(smi, profile=False):
                         if k == "siso_windowed" and shp.endswith(" T=0"))
             check(short > 0, "no code block of K < 256 went through the SISO kernel")
         peak = torch.cuda.max_memory_allocated()
-        n_tab, mb_tab = table_cache()
+        n_tab, mb_tab, n_seq, mb_seq = table_cache()
         failed = [g for g, ok in gates.items() if not ok]
         check(not failed, f"full stack, scenario {name}: gates failed: {failed}")
         want = STACK_JAX[name]
@@ -2720,7 +2775,8 @@ def phase_stack(smi, profile=False):
               f"package's; counts {counts}", flush=True)
         print(f"[18 full stack, {name}] peak device memory {peak / 1e6:.1f} MB "
               f"({(peak - before) / 1e6:.1f} MB above what was allocated before); table cache "
-              f"{n_tab} entries, {mb_tab:.2f} MB; {smi}", flush=True)
+              f"{n_tab} shared entries, {mb_tab:.2f} MB, {n_seq} per-UE sequences, "
+              f"{mb_seq:.2f} MB; {smi}", flush=True)
         for label, ms in times.items():
             print(f"[18 full stack, {name}] {label}: {len(ms)} calls, ms median "
                   f"{float(np.median(ms)):.3f}, p99 {float(np.percentile(ms, 99)):.3f}, "
@@ -2750,14 +2806,276 @@ def phase_stack(smi, profile=False):
     return counts_a
 
 
-def stack_profile(prof, wall_ms):
-    """The device's busy share and top kernels over scenario A's bulk window."""
+# ------------------------------------------------- the full stack over S1
+def s1_port(device="cuda"):
+    """The port's entry points for `s1_scenario`, the apps on `device`."""
+    from srslte_tpu_torch import enb, ue, ue_stack
+    from srslte_tpu_torch.epc import Hss
+    from srslte_tpu_torch.epc.wire import EpcApp
+    from srslte_tpu_torch.nas.keys import kdf_kenb
+    from srslte_tpu_torch.net.s1_transport import sctp_supported
+    from srslte_tpu_torch.phy.common.params import Cell
+    from srslte_tpu_torch.s1ap import s1ap_unpack
+    from srslte_tpu_torch.security.milenage import compute_opc
+
+    return types.SimpleNamespace(
+        EnbApp=functools.partial(enb.EnbApp, device=device),
+        UeApp=functools.partial(ue.UeApp, device=device), UeNas=ue_stack.UeNas,
+        SoftUsim=ue_stack.SoftUsim, Hss=Hss, EpcApp=EpcApp, Cell=Cell, compute_opc=compute_opc,
+        kdf_kenb=kdf_kenb, sctp_supported=sctp_supported, s1ap_unpack=s1ap_unpack)
+
+
+def s1_wiretap(enb, epc, tti_now, log, gtpu):
+    """Record each S1AP PDU as its end receives it, (TTI, "ul" or "dl", raw
+    bytes) into log, and count the G-PDUs each end receives into gtpu."""
+    def tap(owner, direction, pdu_of=None):
+        poll = owner.poll
+
+        def polled():
+            out = poll()
+            if pdu_of is None:
+                gtpu[direction] += len(out)
+            else:
+                log.extend((tti_now[0], direction, pdu_of(x)) for x in out)
+            return out
+        owner.poll = polled
+
+    gtpu.update(ul=0, dl=0)
+    tap(epc.mme.server, "ul", lambda x: x[1])  # (association, PDU) at the MME
+    tap(enb.s1.cli, "dl", lambda x: x)
+    tap(epc.spgw.gtpu, "ul")
+    tap(enb.s1.gtpu, "dl")
+
+
+def s1_scenario(pkg, call=None, bulk_hooks=None):
+    """Phase 19 (see S1_MAX_TTI) on the package `pkg` (`s1_port`, or the JAX
+    package's classes in tests/rehearse_s1.py): S1-A, the attach through
+    the EpcApp and the bulk each way between the UE and SGi; then S1-R, the
+    eNB's release request and one UL packet from the released UE.
+    call(label, fn, *args) makes each of the five per-TTI calls; bulk_hooks
+    (start, stop) run when the bulk is queued and when it has all arrived.
+    Returns (the first TTI of each state, the TTIs run, the gates as {name:
+    bool}, counts, the S1AP log (TTI, direction, procedure))."""
+    call = call or (lambda label, fn, *args: fn(*args))
+    imsi, k = STACK_SUBSCRIBERS[0]
+    cell = pkg.Cell(n_prb=STACK_PRB, id=STACK_CELL_ID, nof_ports=1)
+    hss = pkg.Hss()
+    hss.add_subscriber(imsi, k, op=STACK_OP)
+    tcp = not pkg.sctp_supported()
+    sgi = []
+    epc = pkg.EpcApp(hss, force_tcp=tcp, sgi_tx=lambda ip, pkt: sgi.append((ip, pkt)))
+    epc.mme.s11.settimeout(S1_S11_TIMEOUT)
+    try:
+        enb = pkg.EnbApp(cell, s1={"port": epc.s1_port, "force_tcp": tcp})
+        ue = pkg.UeApp(cell, pkg.UeNas(pkg.SoftUsim(imsi, k, pkg.compute_opc(k, STACK_OP))))
+        tti_now, raw_log, gtpu = [0], [], {}
+        s1_wiretap(enb, epc, tti_now, raw_log, gtpu)
+        first, sent, held, bulk = {}, None, {}, {}
+        counts = {"transport": "framed TCP" if tcp else "SCTP", "queued_tti": None}
+
+        def mark(event, cond, tti):
+            if cond and event not in first:
+                first[event] = tti
+
+        for tti in range(S1_MAX_TTI):
+            tti_now[0] = tti
+            dl = call("enb.tx_subframe", enb.tx_subframe, tti)
+            call("ue.rx_subframe", ue.rx_subframe, dl, tti)
+            ul = call("ue.tx_subframe", ue.tx_subframe, tti)
+            call("enb.rx_subframe", enb.rx_subframe, ul, tti)
+            call("epc.step", epc.step)
+            c = enb.ues.get(ue.crnti) if ue.crnti else None
+            for event, cond in (("mib", ue.mib is not None), ("sib1", ue.sib1 is not None),
+                                ("sib2", ue.sib2 is not None), ("s1_setup", enb.s1.setup_done),
+                                ("rach_sent", ue.state == "rach_sent"),
+                                ("ra_done", ue.state == "connected"),
+                                ("rrc_connected", c is not None and c.rrc_state == "connected"),
+                                ("ics", c is not None and bool(c.teid_ul)),
+                                ("nas_attached", ue.nas.state == "attached"),
+                                ("drb", ue.pdcp_drb is not None),
+                                ("bearer_modified", ue.nas.ip in epc.spgw.dl_teid),
+                                ("rrc_reconfigured", c is not None
+                                 and c.rrc_state == "rrc_reconfigured")):
+                mark(event, cond, tti)
+            if sent is None and {"nas_attached", "drb", "bearer_modified"} <= set(first):
+                sent = (stack_packets(STACK_BULK, STACK_SEED),
+                        stack_packets(STACK_BULK, STACK_SEED + 1))
+                counts["queued_tti"] = tti
+                if bulk_hooks:
+                    bulk_hooks[0]()
+                for p in sent[0]:
+                    ue.send_data(p)
+                counts["dl_accepted"] = sum(epc.spgw.send_dl(ue.nas.ip, p) for p in sent[1])
+                held.update(ctx=c, mme_ue_id=c.mme_ue_id, ip=ue.nas.ip,
+                            kasme=epc.mme.ues[c.mme_ue_id].kasme,
+                            k_int=epc.mme.ues[c.mme_ue_id].sec.k_int)
+            if sent is not None and "release_requested" not in first:
+                mark("dl_first", len(ue.rx_data) > 0, tti)
+                mark("dl_all", len(ue.rx_data) >= len(sent[1]), tti)
+                mark("ul_first", len(sgi) > 0, tti)
+                mark("ul_all", len(sgi) >= len(sent[0]), tti)
+                if "dl_all" in first and "ul_all" in first:
+                    if bulk_hooks:
+                        bulk_hooks[1]()
+                    bulk.update(sgi=list(sgi), rx=list(ue.rx_data))
+                    enb.s1.release_request(held["ctx"])
+                    mark("release_requested", True, tti)
+                continue
+            if "release_requested" in first:
+                mark("enb_released", ue.crnti not in enb.ues, tti)
+                mark("mme_released", held["mme_ue_id"] not in epc.mme.s1_ues, tti)
+                mark("session_deleted", held["ip"] not in epc.spgw.table.by_ue_ip, tti)
+                released = {"enb_released", "mme_released", "session_deleted"} <= set(first)
+                if "reconnect_sent" not in first and released:
+                    n_sgi = len(sgi)
+                    ue.send_data(S1_RECONNECT_PACKET)
+                    mark("reconnect_sent", True, tti)
+                elif "reconnect_sent" in first:
+                    mark("reconnect_ul", S1_RECONNECT_PACKET in [p for _, p in sgi[n_sgi:]], tti)
+                    if ("reconnect_ul" in first
+                            or tti - first["reconnect_sent"] >= S1_RECONNECT_TTIS):
+                        break
+        log = [(t, d, pkg.s1ap_unpack(raw)[0]) for t, d, raw in raw_log]
+        counts.update(s1ap_ul=sum(d == "ul" for _, d, _ in log),
+                      s1ap_dl=sum(d == "dl" for _, d, _ in log), gtpu_ul=gtpu["ul"],
+                      gtpu_dl=gtpu["dl"])
+        g = {"s1_setup": enb.s1.setup_done,
+             "attached": sent is not None and str(held["ip"]).startswith(
+                 epc.spgw.table.ip_base + "."),
+             "teid_and_kenb": (held.get("ctx") is not None and bool(held["ctx"].teid_ul)
+                               and held["ctx"].kenb == pkg.kdf_kenb(held["kasme"], 0)),
+             "nas_keys": sent is not None and ue.nas.sec.k_int == held["k_int"]}
+        if sent is not None:
+            got = bulk.get("sgi", sgi)
+            g["dl_accepted"] = counts["dl_accepted"] == len(sent[1])
+            g["dl_in_order"] = bulk.get("rx", ue.rx_data) == sent[1]
+            g["ul_in_order"] = ([p for _, p in got] == sent[0]
+                                and all(ip == held["ip"] for ip, _ in got))
+        g["released_both_ends"] = {"enb_released", "mme_released",
+                                   "session_deleted"} <= set(first)
+        return first, tti + 1, g, counts, log
+    finally:
+        epc.close()
+
+
+def s1_states_check(first, label):
+    """Phase 19's state TTIs equal to the JAX package's (S1_JAX)."""
+    want = S1_JAX["first"]
+    diff = {k: (first.get(k), want.get(k)) for k in set(first) | set(want)
+            if first.get(k) != want.get(k)}
+    check(not diff, f"S1 wire, {label}: first TTI per state differs from the JAX package's "
+                    f"(port, JAX): {diff}")
+
+
+def phase_s1(smi, profile=False):
+    """The full stack over the S1 wire at 20 MHz (see S1_MAX_TTI): S1-A and
+    S1-R through EnbApp(s1=...), UeApp and the port's EpcApp on the card,
+    gated on the reference's assertions, on every packet once and in order,
+    on the S1AP procedures and the state TTIs of the JAX package's run
+    (S1_JAX), and on the release on both ends; a second, untimed run counts
+    the host synchronisations.  Returns the first run's kernel launch
+    counts."""
+    from srslte_tpu_torch.ops import tdec_cuda, viterbi_cuda
+
+    hooks = ((tdec_cuda, "_launch", "siso"), (viterbi_cuda, "_launch", "viterbi"))
+    pkg = s1_port()
+    times, tti_end, by_shape, bulk = {}, [], collections.Counter(), {}
+    prof = None
+    if profile:
+        from torch.profiler import ProfilerActivity
+        prof = torch.profiler.profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+    def bulk_start():
+        if prof is not None:
+            prof.start()
+        bulk.update(t0=time.perf_counter())
+
+    def bulk_stop():
+        torch.cuda.synchronize()
+        bulk.update(t1=time.perf_counter(), cache_a=table_cache())
+        if prof is not None:
+            prof.stop()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    reset_counts()
+    t0 = time.perf_counter()
+    with wrapped(hooks, launch_recorder(by_shape)):
+        first, ttis, gates, counts, log = s1_scenario(pkg, stack_timer(times, tti_end),
+                                                      (bulk_start, bulk_stop))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    for k in ("siso_windowed", "viterbi_decode"):
+        check(launches[k] > 0, f"the S1 wire path did not launch the {k} kernel")
+    check(any(k == "siso_windowed" and shp.endswith(" T=0") for k, shp in by_shape),
+          "no code block of K < 256 went through the SISO kernel on the S1 wire path")
+    held = ({("siso_windowed", f"K={K} L={L} T={T}") for _, K, L, T in SISO_SHAPES.values()}
+            | {("viterbi_decode", f"len={n}") for _, n in VIT_SHAPES.values()})
+    unheld = sorted({(k, shp) for k, shp in by_shape
+                     if (k, shp.split(" ", 1)[1].replace(" tail_biting=True", "")) not in held})
+    check(not unheld, f"S1 wire: shapes phase 3 does not hold: {unheld}")
+    failed = [g for g, ok in gates.items() if not ok]
+    check(not failed, f"S1 wire: gates failed: {failed}")
+    procs = tuple(f"{d}:{p}" for _, d, p in log)
+    check(procs == S1_JAX["procedures"], f"S1 wire: S1AP procedures {procs} differ from the "
+                                         f"JAX package's {S1_JAX['procedures']}")
+    s1_states_check(first, "S1-A and S1-R")
+    if "reconnect_ul" in S1_JAX["first"]:
+        check("reconnect_ul" in first, "S1 wire: the released UE's packet did not reach SGi")
+    n_tab, mb_tab, n_seq, mb_seq = table_cache()
+    print(f"[19 S1 wire] S1AP over {counts['transport']}; {ttis} TTIs in {wall:.2f} s of wall "
+          f"time; every gate passed ({', '.join(gates)}); S1AP procedures in the JAX package's "
+          f"order: {', '.join(procs)}", flush=True)
+    print(f"[19 S1 wire] first TTI per state {first}, equal to the JAX package's; the released "
+          f"UE's packet "
+          f"{'reached SGi at TTI ' + str(first['reconnect_ul']) if 'reconnect_ul' in first else 'did not reach SGi'} "
+          f"(JAX: {'reached' if 'reconnect_ul' in S1_JAX['first'] else 'did not reach'}; "
+          f"its apps have no reconnect over the wire)", flush=True)
+    print(f"[19 S1 wire] S1AP PDUs: {counts['s1ap_ul']} eNB -> MME, {counts['s1ap_dl']} MME -> "
+          f"eNB; GTP-U G-PDUs: {counts['gtpu_ul']} eNB -> S/P-GW, {counts['gtpu_dl']} S/P-GW -> "
+          f"eNB; {smi}", flush=True)
+    for label, ms in times.items():
+        print(f"[19 S1 wire] {label}: {len(ms)} calls, ms median {float(np.median(ms)):.3f}, "
+              f"p99 {float(np.percentile(ms, 99)):.3f}, max {max(ms):.3f} (LTE's TTI: 1 ms)",
+              flush=True)
+    a = first["nas_attached"]
+    print(f"[19 S1 wire] attach: {a + 1} TTIs, {tti_end[a] - t0:.2f} s of wall time; bulk: "
+          f"{STACK_BULK} x {STACK_BULK_BYTES} bytes each way queued at TTI {counts['queued_tti']}, "
+          f"DL all at SGi -> UE {first['dl_all'] - counts['queued_tti']} TTIs later, UL all at "
+          f"SGi {first['ul_all'] - counts['queued_tti']} TTIs later; "
+          f"{bulk['t1'] - bulk['t0']:.2f} s of wall time", flush=True)
+    print(f"[19 S1 wire] peak device memory {peak / 1e6:.1f} MB ({(peak - before) / 1e6:.1f} MB "
+          f"above what was allocated before); table cache after S1-A: {bulk['cache_a'][0]} "
+          f"shared entries, {bulk['cache_a'][1]:.2f} MB, {bulk['cache_a'][2]} per-UE sequences, "
+          f"{bulk['cache_a'][3]:.2f} MB; after S1-R: {n_tab} entries, {mb_tab:.2f} MB, {n_seq} "
+          f"sequences, {mb_seq:.2f} MB; {smi}", flush=True)
+    per = sorted(by_shape.items(), key=lambda kv: -kv[1])
+    print(f"[19 S1 wire] kernel launches {launches}: per TTI, by shape: "
+          + "; ".join(f"{k} {shp}: {n} ({n / ttis:.3f} per TTI)" for (k, shp), n in per),
+          flush=True)
+    (first2, ttis2, gates2, _, _), n_sync, _ = count_syncs(lambda: s1_scenario(pkg), ())
+    check(all(gates2.values()), f"S1 wire, second run: gates failed: "
+                                f"{[g for g, ok in gates2.items() if not ok]}")
+    s1_states_check(first2, "second run")
+    print(f"[19 S1 wire] second run (untimed, CUDA sync debug mode): the same gates and states; "
+          f"{n_sync} host synchronisations in {ttis2} TTIs = {n_sync / ttis2:.2f} per TTI",
+          flush=True)
+    if prof is not None:
+        stack_profile(prof, (bulk["t1"] - bulk["t0"]) * 1e3, "S1-A bulk")
+    return launches
+
+
+def stack_profile(prof, wall_ms, label="A bulk"):
+    """The device's busy share and top kernels over a bulk window."""
     rows, busy_us = device_rows(prof)
-    print(f"[profile full stack, A bulk] {wall_ms:.1f} ms on the host clock (with the profiler's "
-          f"overhead): {sum(r[1] for r in rows)} kernels and copies, device busy "
+    print(f"[profile full stack, {label}] {wall_ms:.1f} ms on the host clock (with the "
+          f"profiler's overhead): {sum(r[1] for r in rows)} kernels and copies, device busy "
           f"{busy_us / 1e3:.2f} ms, idle share {100 - 100 * busy_us / (wall_ms * 1e3):.1f} %")
     for us, count, key in rows[:14]:
-        print(f"[profile full stack, A bulk]   {us / 1e3:8.3f} ms  {count:6d} x  {key[:90]}")
+        print(f"[profile full stack, {label}]   {us / 1e3:8.3f} ms  {count:6d} x  {key[:90]}")
     sys.stdout.flush()
 
 
@@ -2869,9 +3187,11 @@ def main():
     lap("17 rails")
     counts_stack = phase_stack(smi, profile)
     lap("18 full stack")
+    counts_s1 = phase_s1(smi, profile)
+    lap("19 S1 wire")
     counts = {"dl_f32": counts_dl, "dl_bf16": counts_dl16, **counts_ul, "dl_harq": counts_harq,
               "blind": counts_blind, **counts_sm2, **counts_sm4, **counts_rest, **counts_channel,
-              "rails": counts_rails, "stack": counts_stack}
+              "rails": counts_rails, "stack": counts_stack, "s1": counts_s1}
     print(f"[wall] seconds per phase: {', '.join(f'{k} {v:.1f}' for k, v in walls.items())}; "
           f"total {time.perf_counter() - t_all:.1f}", flush=True)
     line = []

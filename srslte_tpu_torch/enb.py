@@ -111,6 +111,10 @@ class EnbUe:
     ho_pending: bool = False  # HO command sent, awaiting CFRA + complete
     ho_target: tuple | None = None  # (target_pci, new_crnti)
     meas_cfg_sent: bool = False
+    # S1 wire path (enb_s1.EnbS1): MME-assigned id, ICS-carried key, S1-U
+    mme_ue_id: int = -1
+    kenb: bytes = b""
+    teid_ul: int = 0
 
 
 @dataclass
@@ -149,10 +153,6 @@ class EnbApp:
         from .utils.events import EventLog
         from .rrc.messages import Sib2
 
-        if s1 is not None:
-            raise NotImplementedError(
-                "EnbApp(s1=...): the S1 wire path (enb_s1) is ROADMAP queue A "
-                "step 6b; the co-located Mme is attached by direct call")
         self.device = resolve(device)
 
         # the broadcast common config IS the live config: PRACH geometry
@@ -185,6 +185,12 @@ class EnbApp:
         self._pending_pages: dict[int, set] = {}
         self._next_ue_id = 1
         self._pending_nas: dict = {}
+        # S1 wire mode: NAS crosses a real S1AP association (enb_s1.EnbS1)
+        # instead of the co-located Mme direct-call boundary
+        self.s1 = None
+        if s1 is not None:
+            from .enb_s1 import EnbS1
+            self.s1 = s1 if isinstance(s1, EnbS1) else EnbS1(self, **s1)
 
     # -- single-cell compatibility views ----------------------------------
     @property
@@ -500,6 +506,8 @@ class EnbApp:
             self._tick()
 
     def _tick(self):
+        if self.s1 is not None:
+            self.s1.step()
         for ue in self.ues.values():
             ue.srb1.tick()
             ue.drb1.tick()
@@ -606,6 +614,20 @@ class EnbApp:
                 pkt = ue.pdcp_drb.rx(sdu)
                 if pkt is not None:
                     ue.rx_data.append(pkt)
+                    if self.s1 is not None:
+                        self.s1.ul_data(ue, pkt)
+
+    # -- enb_s1.EnbS1 callbacks (S1 wire mode) -----------------------------
+    def dl_nas_to_ue(self, ue: EnbUe, nas_pdu: bytes):
+        ue.srb1.write_sdu(rrc_pack(DlInformationTransfer(nas_pdu=nas_pdu)))
+
+    def start_as_security(self, ue: EnbUe, attach_nas: bytes):
+        """InitialContextSetupRequest arrived: run RRC SMC now and carry
+        the piggybacked NAS (attach accept) in the reconfiguration."""
+        if attach_nas:
+            self._pending_nas[ue.crnti] = attach_nas
+        from .security import EEA2, EIA2
+        ue.srb1.write_sdu(rrc_pack(RrcSecurityModeCommand(EEA2, EIA2)))
 
     def page(self, guti: int):
         """Queue a PCCH page for the next paging occasion on every cell
@@ -638,7 +660,10 @@ class EnbApp:
         from .nas.keys import kdf_as_keys, kdf_kenb
         from .security import EEA2, EIA2
 
-        kenb = kdf_kenb(self.mme.ues[ue.ue_id].kasme, 0)
+        if ue.kenb:
+            kenb = ue.kenb  # S1AP InitialContextSetup carried it
+        else:
+            kenb = kdf_kenb(self.mme.ues[ue.ue_id].kasme, 0)
         k_up, k_rrc_int = kdf_as_keys(kenb, EEA2, EIA2)
         ue.pdcp1 = PdcpEntity(PdcpConfig(is_srb=True, bearer_id=1, ea=EEA2,
                                          ia=EIA2), kenb[:16], k_rrc_int,
@@ -715,6 +740,9 @@ class EnbApp:
 
     def _nas_dl(self, ue: EnbUe, nas_pdu: bytes):
         if not nas_pdu:
+            return
+        if self.s1 is not None:
+            self.s1.ul_nas(ue, nas_pdu)
             return
         if self.mme is None:
             return

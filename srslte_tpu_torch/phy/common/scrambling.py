@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from ..._device import as_tensor, table
+from ..._device import as_tensor, sequence
 from .sequence import gold_sequence, gold_sequence_signed
 
 
@@ -18,7 +18,8 @@ def scramble_bits(bits, seed: int, device=None):
     """XOR bits [..., n] with c(0..n-1) (host-precomputed table)."""
     bits = as_tensor(bits, device)
     n = bits.shape[-1]
-    c = table(("gold", seed, n), bits.device, lambda: gold_sequence(seed, n))
+    # the PDSCH, PUSCH and PUCCH seeds carry the RNTI: a per-UE table
+    c = sequence(("gold", seed, n), bits.device, lambda: gold_sequence(seed, n))
     return (bits.to(torch.uint8) ^ c).to(bits.dtype)
 
 
@@ -26,8 +27,8 @@ def scramble_llr(llr, seed: int, device=None):
     """Flip LLR signs where c(n)=1 (descrambling of soft bits)."""
     llr = as_tensor(llr, device)
     n = llr.shape[-1]
-    s = table(("gold_signed", seed, n), llr.device,
-              lambda: gold_sequence_signed(seed, n))
+    s = sequence(("gold_signed", seed, n), llr.device,
+                 lambda: gold_sequence_signed(seed, n))
     return llr * s
 
 

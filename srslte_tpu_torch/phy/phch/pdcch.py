@@ -21,7 +21,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..._device import as_tensor, table
+from ..._device import as_tensor, sequence
 from ..common.params import Cell
 from ..common.scrambling import pdcch_cinit
 from ..common.sequence import gold_sequence, gold_sequence_signed
@@ -140,13 +140,14 @@ class Pdcch:
         L = locs[0].L
         o = self.cell.ofdm
         dev = grid.device
-        idx = table(("pdcch_re", self, locs), dev, lambda: np.stack(
+        # a UE-specific search space follows from the RNTI: per-UE tables
+        idx = sequence(("pdcch_re", self.cell, self.cfi, locs), dev, lambda: np.stack(
             [self.re_idx[l.cce * 36 : (l.cce + L) * 36] for l in locs]).astype(np.int64))
         y = grid.reshape(grid.shape[:-2] + (-1,))[..., idx]  # [..., ncand, 36L]
         cef = ce.reshape(ce.shape[:-3] + (ce.shape[-3], o.nsymb_sf * o.nof_re))
         xhat = diversity_combine(y, cef, idx, self.cell.nof_ports)[0]
         llr = demod_soft(xhat, Modulation.QPSK)  # [..., ncand, 72L]
-        soff = table(("pdcch_scr", self, locs), dev, lambda: np.stack(
+        soff = sequence(("pdcch_scr", self.cell, self.cfi, self.sf_idx, locs), dev, lambda: np.stack(
             [self._scramble_signed[l.cce * 72 : (l.cce + L) * 72] for l in locs]))
         return llr * soff
 

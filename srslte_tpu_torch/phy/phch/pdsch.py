@@ -140,7 +140,11 @@ class Pdsch:
                                 self.grant.prb_mask_slot1, self.dwpts_symbols)
 
     def _re_idx_t(self, device) -> torch.Tensor:
-        return table(("pdsch_re", self), device, lambda: self.re_idx.astype(np.int64))
+        # keyed by what the RE map reads, so that every RNTI and mcs with
+        # this allocation shares it
+        key = ("pdsch_re", self.cell, self.grant.prb_mask, self.grant.prb_mask_slot1,
+               self.cfi, sf_flags(self.sf_idx), self.dwpts_symbols)
+        return table(key, device, lambda: self.re_idx.astype(np.int64))
 
     @property
     def cinit(self) -> int:

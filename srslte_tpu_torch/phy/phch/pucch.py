@@ -37,7 +37,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..._device import as_tensor, resolve, table
+from ..._device import as_tensor, resolve, sequence, table
 from ..chest.refsignal_ul import base_sequence
 from ..common.params import CP, Cell
 from ..common.sequence import gold_sequence
@@ -400,15 +400,17 @@ class Pucch:
         """Per slot: (data, DMRS, data RE indices, DMRS RE indices) on the
         device, uploaded once per bucket."""
         data, dmrs, _, syms, msy = self._host_tables
-        t = lambda name, build: table(("pucch", self, name), device, build)
+        key = ("pucch", self.cell, self._key, self.sf_idx, self.shortened)
+        t = lambda name, build: table(key + (name,), device, build)
         return [(t(("data", s), lambda s=s: data[s]), t(("dmrs", s), lambda s=s: dmrs[s]),
                  t(("re_data", s), lambda s=s: self._slot_idx(s, syms[s])),
                  t(("re_dmrs", s), lambda s=s: self._slot_idx(s, msy)))
                 for s in range(2)]
 
     def _scramble(self, n: int, device) -> torch.Tensor:
-        return table(("pucch_scr", self, n), device,
-                     lambda: _f2_scramble_signed(self.cell, self.rnti, self.sf_idx, n))
+        # the format 2/3 scrambling seed carries the RNTI: a per-UE table
+        return sequence(("pucch_scr", self.cell.id, self.rnti, self.sf_idx, n), device,
+                        lambda: _f2_scramble_signed(self.cell, self.rnti, self.sf_idx, n))
 
     # -- UE side --------------------------------------------------------------
     def encode(self, ack_bits=(), cqi_bits=(), grid=None, device=None):

@@ -119,11 +119,9 @@ class Pusch:
         return (data_symbols(self.cell)[:, None] * o.nof_re + k[None, :]
                 ).reshape(-1).astype(np.int32)
 
-    def _table(self, name: str, device, build) -> torch.Tensor:
-        return table(("pusch", self, name), device, build)
-
     def _interleaver(self, device) -> torch.Tensor:
-        return self._table("interleaver", device, lambda: interleaver_indices(
+        key = ("pusch_interleaver", self.cfg.G, self.cfg.Qm, self.n_data_symbols)
+        return table(key, device, lambda: interleaver_indices(
             self.cfg.G, self.cfg.Qm, self.n_data_symbols).astype(np.int64))
 
     # -- UE side --------------------------------------------------------------
@@ -158,15 +156,18 @@ class Pusch:
                                dtype=torch.complex64, device=dev)
         flat = as_tensor(grid, dev).to(torch.complex64).reshape(
             grid.shape[:-2] + (o.nsymb_sf * o.nof_re,)).clone()
-        flat[..., self._table("re", dev, lambda: self.re_idx.astype(np.int64))] = \
+        re_key = ("pusch_re", self.cell, self.grant.prb_start, self.grant.n_prb)
+        flat[..., table(re_key, dev, lambda: self.re_idx.astype(np.int64))] = \
             freq.reshape(freq.shape[:-2] + (-1,))
         grid = flat.reshape(grid.shape)
         # DMRS on symbol 3 of each slot
         ls = dmrs_symbol(self.cell)
         sym_idx = torch.as_tensor([ls, o.nsymb_slot + ls], device=dev)
         k0 = self.grant.prb_start * 12
-        grid[..., sym_idx, k0 : k0 + self.m_sc] = self._table(
-            "dmrs", dev, lambda: pusch_dmrs(self.cell, self.sf_idx, self.grant.n_prb))
+        # the entry `ChestUl` reads for the same DMRS (n_dmrs2 = 0)
+        grid[..., sym_idx, k0 : k0 + self.m_sc] = table(
+            ("pusch_dmrs", self.cell, self.sf_idx, self.grant.n_prb, 0), dev,
+            lambda: pusch_dmrs(self.cell, self.sf_idx, self.grant.n_prb))
         return grid
 
     # -- eNB side -------------------------------------------------------------
@@ -179,8 +180,8 @@ class Pusch:
         across the DFT block): mean |h|^2 over the allocation / noise.
         """
         k0 = self.grant.prb_start * 12
-        dsym = self._table("dsym", grid.device,
-                           lambda: data_symbols(self.cell).astype(np.int64))
+        dsym = table(("pusch_dsym", self.cell), grid.device,
+                     lambda: data_symbols(self.cell).astype(np.int64))
         y = grid[..., dsym, k0 : k0 + self.m_sc]
         h = ce[..., dsym, :]
         nv = noise[..., None, None]

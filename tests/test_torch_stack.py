@@ -169,11 +169,6 @@ def test_apps_default_to_the_card():
         UeApp(cell, UeNas(SoftUsim(IMSI, K, compute_opc(K, OP))))
 
 
-def test_s1_wire_path_is_step_6b():
-    with pytest.raises(NotImplementedError, match="step 6b"):
-        EnbApp(Cell(n_prb=N_PRB, id=42, nof_ports=1), s1={}, device=CPU)
-
-
 # -------------------------------------- analogs of tests/test_e2e_stack.py
 def test_full_stack_attach_and_data_over_the_air():
     cell = Cell(n_prb=N_PRB, id=42, nof_ports=1)

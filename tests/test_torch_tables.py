@@ -109,7 +109,12 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
                 "phy/channel/delay.py", "phy/channel/hst.py", "phy/channel/rlf.py",
                 "phy/channel/__init__.py", "phy/resampling/resampler.py", "phy/agc.py",
                 "phy/ue/intra_measure.py", "phy/io/net.py", "runtime/native.py", "radio.py",
-                "net/zmq_rf.py"):
+                "net/zmq_rf.py",
+                # the S1 wire path and its tooling
+                "s1ap/__init__.py", "s1ap/aper.py", "s1ap/messages.py", "net/s1_transport.py",
+                "epc/gtpc.py", "enb_s1.py", "epc/wire.py", "epc/mbms_gw.py", "net/tun.py",
+                "ttcn3.py", "utils/config.py", "utils/crash.py", "utils/metrics.py",
+                "utils/pcap.py", "utils/sysmetrics.py", "utils/tprof.py", "utils/trace.py"):
         assert f"srslte_tpu_torch/{mod}" in names, mod
     hits = [f"{f.relative_to(ROOT)}:{i + 1}: {line}"
             for f in files for i, line in enumerate(f.read_text().splitlines())
