@@ -23,7 +23,8 @@ subframes, with the peak device memory of one dispatch per path:
   a 30-bit CQI, clean and at 18 dB, with the SISO in float32 and in 16 bits;
 - the device Gold sequence against the host one;
 - the turbo BLER gates of tests/test_bler_gates.py on the card, in float32
-  (checks) and in 16 bits (printed);
+  (checks) and in 16 bits (printed), and its LDPC gate (BG1 Zc 64 at 2 dB,
+  no block error in 50);
 - DL HARQ on the 20 MHz deployment above: each TB sent at rv 0, then only the
   TBs still failing again at rv 2, 3, 1 (DlGrant.full(100, 27, rv)), AWGN ->
   UeDl.fft_estimate -> Pdsch.soft_bits -> mac.harq.combine_llr into each
@@ -87,7 +88,22 @@ subframes, with the peak device memory of one dispatch per path:
   (tests/rehearse_s1.py), every packet once and in order, the release on
   both ends; ms per call of the five per-TTI calls (epc.step among them),
   S1AP and GTP-U PDUs per direction, host synchronisations per TTI, memory,
-  the table cache after S1-A and S1-R and kernel launches by shape.
+  the table cache after S1-A and S1-R and kernel launches by shape;
+- (phase 20, the main path of the latest slice) the NR PHY at 52 PRB
+  (NrCarrier(52, mu 0): 10 MHz at 15 kHz SCS, cell 1, slot 4, RNTI 0x4601),
+  128 slots per dispatch, encoded on the card: 20a DCI 1_0 (K 63, E 432,
+  N 512) on Coreset.full(48) at aggregation 4 and its PDSCH at mcs 27 of the
+  qam64 table over PRB 0-51 (5 BG1 code blocks of Zc 384 per slot); the UE
+  searches the DCI in 16 slots (and under a wrong RNTI) and decodes the
+  PDSCH of all 128 slots with the grant it read back, clean and at
+  NR_SNR_DB (noise drawn on the host; the lost slots held against the JAX
+  package's on the same grid); ms per dispatch and per search, stage ms,
+  launches per ldpc_decode and per polar_decode_list (torch.profiler), host
+  synchronisations, peak memory; 20b 256QAM (mcs 27 of the qam256 table),
+  20c two layers over 2 rx (the 2x2 MMSE), 20d the PUSCH on a DCI 0_0
+  grant, PUCCH formats 0-4, UCI (block code, polar with PC bits) and a
+  CSI-RS measurement packed into a CSI report on format 2.  Neither CUDA
+  kernel runs on this path: LDPC and polar are plain PyTorch.
 
 Exits non-zero on any failure, and when there is no CUDA device.  The line
 before the last is the card's name and power limit; the last line is
@@ -96,8 +112,8 @@ before the last is the card's name and power limit; the last line is
 `python3 chip_smoke.py --profile` adds one DL and one UL dispatch, one HARQ
 round, one UL-control dispatch, one blind receive, one 2x2 and one 4x4 SM
 dispatch, one EVA70 channel + decode dispatch, the rails' blind receive and
-the full stack's bulk windows (scenario A, and S1-A over the wire) under
-`torch.profiler` and prints
+the full stack's bulk windows (scenario A, and S1-A over the wire) and one
+NR DL dispatch under `torch.profiler` and prints
 the device's busy share and the kernels that take most of its time.  The line before the kernels line
 gives each phase's wall time and the total.
 """
@@ -422,6 +438,45 @@ S1_JAX = {
 
 # (TBS, G, code blocks) of the 1-port DL deployment at each mcs that a phase
 # runs (phases 4-5: 27; phase 16: 20, 13, 6)
+# NR PHY (phase 20): the JAX package's default carrier NrCarrier(n_prb=52,
+# mu=0), 10 MHz at 15 kHz SCS, cell id 1 (srsRAN 21.04's NR NSA cell); slot 4
+# of every dispatch, as the LTE cells use subframe 4
+NR_PRB = 52
+NR_RNTI = 0x4601
+NR_WRONG_RNTI = 0x3333
+NR_SLOT = 4
+NR_SS = (0, 0, 2, 2, 0)  # the worker's UE-specific search space (L 4 and 8)
+NR_MCS = 27
+NR_SEARCHED = 16  # slots of a dispatch whose DCI the UE searches
+NR_SEED = 51
+NR_H = 0.9 * np.exp(0.5j)  # a flat gain (tests/test_nr_slot_loop.py's)
+NR_H2 = ((1.0 + 0.1j, 0.35 - 0.2j), (-0.3 + 0.25j, 0.9 - 0.15j))  # tests/test_nr_mimo2.py's
+# per path: the lowest whole dB (Es/N0 per RE of the unit-power symbols sent)
+# at which the JAX package decodes >= 95 % of 32 TBs of the path's stimulus
+# (python tests/rehearse_nr.py, on the CPU)
+NR_SNR_DB = {"dl": 22.0, "dl256": 29.0, "mimo2": 14.0, "ul": 23.0}
+# per path: the slots of the noise-free 128-slot stimulus whose TB the JAX
+# package does not decode (python tests/rehearse_nr.py --clean): every LLR
+# saturates at +-1e3, and where all edges of a check row have that one
+# magnitude the reference's min-sum masks them all, sends +-inf and the
+# codeword turns to NaN (ROADMAP.md queue C item 19); the port fails the same
+NR_JAX_CLEAN = {"dl": (), "dl256": (25, 90, 120), "mimo2": (), "ul": ()}
+# per path: the slots of the noisy dispatch (the 128-slot stimulus with the
+# noise NrChain.noisy draws from the path's seed at NR_SNR_DB) whose TB the
+# JAX package does not decode (python tests/rehearse_nr.py --noisy); the
+# 32-TB draw that set NR_SNR_DB decodes whole, this wider one does not
+NR_JAX_NOISY = {"dl": (14, 17, 18, 22, 31, 47, 49, 50, 53, 83, 84, 91, 95, 97, 111, 112, 121, 127),
+                "dl256": (3, 11, 20, 42, 53, 55, 68, 96, 111), "mimo2": (4, 10, 44, 105),
+                "ul": ()}
+# the noisy dispatch's lost slots may differ from NR_JAX_NOISY in this many:
+# float32 rounding (the batch's reductions, the 2x2 MMSE) moves a TB that sits
+# on the waterfall's edge; on the CPU the port itself loses (4, 10, 105) of
+# "mimo2" decoding the 128 slots at once and (4, 10, 44, 105) in fours of 32
+NR_NOISY_SLACK = 3
+# tests/test_bler_gates.py's LDPC gate: BG1 Zc 64 at Eb/N0 2 dB, 0 block
+# errors in 50, seed 3, 12 iterations
+LDPC_GATE = (1, 64, 2.0, 50, 3, 12)
+
 DL_BUCKETS = {27: (63776, 82800, 11), 20: (39232, 82800, 7), 13: (22920, 55200, 4),
               6: (10296, 27600, 2)}
 
@@ -1215,7 +1270,34 @@ def phase_gates():
                   flush=True)
             if dt == F32:
                 check(met, f"turbo BLER gate K={k} at {ebno} dB: {errs}/{n} block errors")
+    phase_ldpc_gate()
     return out
+
+
+def phase_ldpc_gate():
+    """tests/test_bler_gates.py's LDPC gate on CUDA tensors (LDPC_GATE: the
+    same seed and numpy stimulus; the codewords from the port's encoder,
+    equal to the reference's): zero block errors, or the run fails."""
+    from srslte_tpu_torch.phy.fec.ldpc import LdpcGraph, ldpc_decode, ldpc_encode
+
+    bg, zc, ebno, n, seed, n_iter = LDPC_GATE
+    g = LdpcGraph(bg, zc)
+    rng = np.random.default_rng(seed)
+    bits = rng.integers(0, 2, (n, g.k)).astype(np.uint8)
+    cw = ldpc_encode(torch.as_tensor(bits, device="cuda"), g).cpu().numpy().astype(np.float32)
+    rate = g.k / (g.n_full - 2 * g.zc)
+    sigma = np.sqrt(1.0 / (2.0 * rate * 10 ** (ebno / 10)))
+    llr = (2 * cw - 1) + sigma * rng.standard_normal(cw.shape).astype(np.float32)
+    llr[:, : 2 * g.zc] = 0.0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, ok = ldpc_decode(torch.as_tensor(llr, device="cuda"), g, n_iter=n_iter)
+    errs = int((out.cpu().numpy() != bits).any(axis=1).sum())
+    ms = (time.perf_counter() - t0) * 1e3
+    print(f"[9 BLER gates] LDPC BG{bg} Zc {zc} Eb/N0 {ebno} dB, {n_iter} iterations: {errs}/{n} "
+          f"block errors, {int(ok.sum())} parity checks passed (gate: 0) -> "
+          f"{'met' if errs == 0 else 'MISSED'}; {ms:.1f} ms", flush=True)
+    check(errs == 0, f"LDPC BLER gate BG{bg} Zc {zc} at {ebno} dB: {errs}/{n} block errors")
 
 
 class HarqPath:
@@ -3068,6 +3150,366 @@ def phase_s1(smi, profile=False):
     return launches
 
 
+class NrChain:
+    """One deployment of phase 20 and the two sides of its path, on
+    NrCarrier(NR_PRB, mu 0) in slot NR_SLOT for RNTI NR_RNTI:
+
+    - "dl": DCI 1_0 over all 52 PRB at mcs 27 (the qam64 table, which DCI 1_0
+      always signals), put by NrPdcch at the first L=4 location of NR_SS on
+      Coreset.full(48, duration 1); its PDSCH on symbols 1-13, type-1 DMRS
+      at l 2 (TBS 39936: 5 BG1 code blocks of Zc 384, G 44928);
+    - "dl256": a grant-based PDSCH at mcs 27 of the qam256 table on 52 PRB
+      (TBS 55304: 7 x Zc 384);
+    - "mimo2": NrPdsch(n_layers=2), 64QAM at rate 0.5 over the whole slot,
+      ports 1000/1001 through the 2x2 channel NR_H2 to 2 rx;
+    - "ul": NrPusch on the grant of a DCI 0_0 over 52 PRB at mcs 27.
+
+    Every path but "mimo2" goes through the flat gain NR_H.  `device="cpu"`
+    lets tests/rehearse_nr.py build the same stimulus on the host."""
+
+    BUCKETS = {"dl": (39936, 44928, 5, 384), "dl256": (55304, 59904, 7, 384),
+               "mimo2": (48672, 97344, 6, 384), "ul": (39936, 44928, 5, 384)}
+
+    def __init__(self, kind, device="cuda"):
+        from srslte_tpu_torch.phy import nr
+
+        self.kind, self.device = kind, device
+        self.carrier = nr.NrCarrier(n_prb=NR_PRB, mu=0)
+        self.coreset = nr.Coreset.full(48, duration=1)
+        self.ss = nr.NrSearchSpace(ue_specific=True, nof_candidates=NR_SS)
+        self.pdcch = nr.NrPdcch(self.carrier, self.coreset, slot=NR_SLOT)
+        self.dci = None
+        if kind == "dl":
+            self.dci = nr.Dci10(rb_start=0, l_rb=NR_PRB, mcs=NR_MCS)
+            self.dci_bits = nr.pack_dci_10(self.dci, NR_PRB)
+            check(nr.unpack_dci_10(self.dci_bits, NR_PRB) == self.dci, "DCI 1_0 round trip")
+            self.pdsch = self.pdsch_for(self.dci.grant(NR_PRB))
+        elif kind == "ul":
+            self.dci = nr.Dci00(rb_start=0, l_rb=NR_PRB, mcs=NR_MCS)
+            self.dci_bits = nr.pack_dci_00(self.dci, NR_PRB, NR_PRB)
+            check(nr.unpack_dci_00(self.dci_bits, NR_PRB) == self.dci, "DCI 0_0 round trip")
+            self.pdsch = nr.NrPusch(self.carrier, rnti=NR_RNTI, slot=NR_SLOT + 4,
+                                    grant=self.dci.grant(NR_PRB))
+        elif kind == "dl256":
+            self.pdsch = self.pdsch_for(nr.NrGrant(0, NR_PRB, NR_MCS, mcs_table="qam256"))
+        else:
+            self.pdsch = nr.NrPdsch(self.carrier, mcs_qm=6, rate=0.5, rnti=NR_RNTI,
+                                    slot=NR_SLOT, n_layers=2)
+        cfg = self.pdsch.cfg
+        got = (cfg.tbs, cfg.G, cfg.seg.C, cfg.seg.zc)
+        check(got == self.BUCKETS[kind], f"NR {kind}: unexpected bucket {got}")
+        self.locations = self.search_space(NR_RNTI)
+        self.tx_loc = self.locations[0]  # the first L=4 location
+        self.h2 = torch.as_tensor(np.array(NR_H2, np.complex64), device=device)
+
+    def pdsch_for(self, grant):
+        from srslte_tpu_torch.phy.nr import NrPdsch
+
+        return NrPdsch(self.carrier, rnti=NR_RNTI, slot=NR_SLOT, grant=grant)
+
+    def search_space(self, rnti):
+        """(first CCE, L) of every candidate of NR_SS for `rnti`, L 4 first."""
+        from srslte_tpu_torch.phy.nr import pdcch_nr_locations
+
+        return [(n, 1 << a) for a in (2, 3)
+                for n in pdcch_nr_locations(self.coreset, self.ss, rnti, a, NR_SLOT)]
+
+    def encode(self, seed, batch=BATCH):
+        """(bits [B, tbs] on the device, received grids: [B, 14, 624], or
+        [B, 2rx, 14, 624] for "mimo2"), noise-free."""
+        rng = np.random.default_rng(seed)
+        bits = torch.as_tensor(rng.integers(0, 2, (batch, self.pdsch.tbs), dtype=np.uint8),
+                               device=self.device)
+        tx = self.pdsch.encode(bits)
+        if self.kind == "dl":
+            tx = self.pdcch.encode(tx, self.dci_bits, NR_RNTI, *self.tx_loc)
+        if self.kind == "mimo2":
+            return bits, torch.einsum("rp,bpsk->brsk", self.h2, tx)
+        return bits, tx * complex(NR_H)
+
+    @staticmethod
+    def noisy(rx, snr_db, gen):
+        """rx with complex AWGN of variance 10^(-snr_db/10) per RE (the
+        transmitted symbols have unit power), drawn anew from the host
+        generator `gen` and moved to rx's device, so that
+        tests/rehearse_nr.py decodes the same grid on the CPU."""
+        sigma = math.sqrt(10.0 ** (-snr_db / 10.0) / 2.0)
+        n = (torch.randn((2,) + rx.shape, generator=gen) * sigma).to(rx.device)
+        return rx + torch.complex(n[0], n[1])
+
+    def search(self, grid, rnti=NR_RNTI):
+        """The UE's blind search of one slot's grid for `rnti`."""
+        return self.pdcch.search(grid, rnti, len(self.dci_bits), self.search_space(rnti))
+
+
+def nr_score(bits, sent, ok, label):
+    """TBs that pass their CRC; fails if one that passed differs from the
+    bits sent."""
+    check(bits.shape == sent.shape and bits.dtype == torch.uint8, f"{label}: TB shape or type")
+    check(bool((bits[ok] == sent[ok]).all()), f"{label}: a TB that passed CRC differs from "
+                                              f"the bits sent")
+    return int(ok.sum())
+
+
+def nr_searches(chain, rx, label):
+    """The DCI search in the first NR_SEARCHED slots for the right RNTI (each
+    must find the DCI sent at its location) and for NR_WRONG_RNTI (each must
+    find nothing).  Returns (the grant read back, ms per right search)."""
+    from srslte_tpu_torch.phy.nr import unpack_dci_10
+
+    times = []
+    for s in range(NR_SEARCHED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hit = chain.search(rx[s])
+        times.append((time.perf_counter() - t0) * 1e3)
+        check(hit is not None and hit[0] == chain.tx_loc
+              and np.array_equal(hit[1], chain.dci_bits),
+              f"{label}: slot {s}: the DCI read back is {hit}")
+        check(chain.search(rx[s], NR_WRONG_RNTI) is None,
+              f"{label}: slot {s}: a DCI found under RNTI {NR_WRONG_RNTI:#x}")
+    dci = unpack_dci_10(hit[1], NR_PRB)
+    check(dci == chain.dci, f"{label}: DCI {dci} unpacked, {chain.dci} sent")
+    return dci.grant(NR_PRB), float(np.median(times))
+
+
+def nr_dispatch_counted(run):
+    """run() with the peak device memory reset before: (result, peak MB,
+    MB above what was allocated before)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    out = run()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    return out, peak / 1e6, (peak - before) / 1e6
+
+
+def device_launches(run):
+    """(kernels and copies on the card, device busy ms, host ms) of one run()
+    under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows, busy_us = device_rows(prof)
+    return sum(r[1] for r in rows), busy_us / 1e3, wall
+
+
+def phase_nr_path(label, chain, seed, profile=False):
+    """One NR deployment: the stimulus, a clean dispatch (every TB but the
+    slots NR_JAX_CLEAN[kind] that the JAX package loses too), a noisy
+    dispatch at NR_SNR_DB[kind] (TB ok >= 80 %, and the slots lost those
+    NR_JAX_NOISY[kind] that the JAX package loses on the same grid) with its
+    peak memory, then the median of N_TIMED dispatches.  For "dl" the UE
+    first searches the DCI in NR_SEARCHED slots and decodes with the grant
+    it read back.  Returns (median ms, the noisy stimulus, the PDSCH
+    decoded)."""
+    t0 = time.perf_counter()
+    bits, rx = chain.encode(seed)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(torch.view_as_real(rx)).all()), f"{label}: stimulus values")
+    cfg = chain.pdsch.cfg
+    print(f"[{label}] stimulus: {BATCH} slots encoded on the card in "
+          f"{time.perf_counter() - t0:.1f} s: TBS {cfg.tbs}, G {cfg.G}, {cfg.seg.C} BG"
+          f"{cfg.seg.bg} code blocks of Zc {cfg.seg.zc} per slot", flush=True)
+    snr = NR_SNR_DB[chain.kind]
+    gen = torch.Generator()
+    gen.manual_seed(seed)
+    pdsch = chain.pdsch
+    for name, r in (("clean", rx), (f"{snr} dB", chain.noisy(rx, snr, gen))):
+        if chain.kind == "dl":
+            grant, search_ms = nr_searches(chain, r, f"{label}, {name}")
+            pdsch = chain.pdsch_for(grant)
+            check(pdsch == chain.pdsch, f"{label}: the grant read back gives another PDSCH")
+            print(f"[{label}, {name}] DCI search in {NR_SEARCHED} slots ({len(chain.locations)} "
+                  f"candidates each, polar N {512}, list 8): every DCI found at {chain.tx_loc} "
+                  f"and equal to the one sent ({chain.dci}); none under RNTI "
+                  f"{NR_WRONG_RNTI:#x}; {search_ms:.2f} ms per search (median)", flush=True)
+        (out, ok, _), peak, rise = nr_dispatch_counted(lambda: pdsch.decode(r))
+        n_ok = nr_score(out, bits, ok, f"{label}, {name}")
+        lost = tuple(np.where(~ok.cpu().numpy())[0].tolist())
+        jax_lost, slack = ((NR_JAX_CLEAN, 0) if name == "clean" else
+                           (NR_JAX_NOISY, NR_NOISY_SLACK))
+        jax_lost = jax_lost[chain.kind]
+        differ = sorted(set(lost) ^ set(jax_lost))
+        check(len(differ) <= slack, f"{label}, {name}: TB ok {n_ok}/{BATCH}, slots {lost} lost "
+                                    f"(the JAX package loses {jax_lost} of this grid)")
+        if name != "clean":
+            check(n_ok >= 0.8 * BATCH, f"{label}, {name}: TB ok {n_ok}/{BATCH}")
+            noisy = r
+        print(f"[{label}, {name}] TB ok {n_ok}/{BATCH}, each equal to the bits sent; slots lost "
+              f"{lost}, the JAX package's on this grid {jax_lost}, differing {differ} (at most "
+              f"{slack}); peak device memory {peak:.1f} MB ({rise:.1f} MB above what was "
+              f"allocated before)", flush=True)
+    ms, (out, ok, _) = median_ms(lambda: pdsch.decode(noisy))
+    n_ok = nr_score(out, bits, ok, label)
+    print(f"[{label}, {snr} dB] {N_TIMED} timed dispatches of {BATCH} slots: median "
+          f"{ms:.3f} ms/dispatch = {BATCH / (ms * 1e-3):.1f} slots/s ({BATCH / ms:.4f} x real "
+          f"time: 1000 slots/s at mu 0); last TB ok {n_ok}/{BATCH}", flush=True)
+    if profile:
+        phase_profile(label, lambda: pdsch.decode(noisy), ms)
+    return ms, noisy, pdsch
+
+
+def phase_nr(smi, profile=False):
+    """Phase 20, the slice's main path: the NR PHY at 52 PRB (NrChain)."""
+    from srslte_tpu_torch.phy.fec.polar import PolarCode, input_interleaver, polar_decode_list
+    from srslte_tpu_torch.phy.nr import NrPdcch, NrPdsch, dlsch_nr
+
+    dl = NrChain("dl")
+    reset_counts()
+    ms, rx, pdsch = phase_nr_path("20a NR DL", dl, NR_SEED, profile)
+    print(f"[20a NR DL] CUDA kernel launches on this path: {read_counts()} (LDPC and polar are "
+          f"plain PyTorch)", flush=True)
+    # the stages of one dispatch, a synchronise after each
+    t0 = time.perf_counter()
+    stages = [("start", t0)]
+    hooks = ((NrPdsch, "demod_llr", "demod_llr"),
+             (dlsch_nr, "nr_dlsch_combine", "rate_recovery"),
+             (dlsch_nr, "ldpc_decode", "ldpc_decode"),
+             (dlsch_nr.crcmod, "crc_ok_device", "crc"))
+    with stage_marks(stages, hooks):
+        torch.cuda.synchronize()
+        stages[0] = ("start", time.perf_counter())
+        pdsch.decode(rx)
+    split = ", ".join(f"{nm} {(t - stages[i][1]) * 1e3:.2f}"
+                      for i, (nm, t) in enumerate(stages[1:]))
+    print(f"[20a NR DL] one more dispatch with a synchronise after each stage, ms (crc: code "
+          f"blocks, then transport blocks): {split}", flush=True)
+    # launches of one LDPC decode and one list decode at the path's shapes
+    cfg = pdsch.cfg
+    w = dlsch_nr.nr_dlsch_combine(pdsch.demod_llr(rx)[0], cfg)
+    n_ldpc, busy_ldpc, wall_ldpc = device_launches(
+        lambda: dlsch_nr.ldpc_decode(w, cfg.graph, n_iter=10))
+    code = PolarCode(K=len(dl.dci_bits) + 24, E=2 * 4 * 6 * 9, n_max=9)
+    flat = rx[0].reshape(-1)
+    llr = torch.stack([dl.pdcch.candidate_llr(flat, NR_RNTI, n, 4) for n, _ in
+                       dl.locations[:2]])
+    n_polar, busy_polar, wall_polar = device_launches(lambda: polar_decode_list(llr, code, L=8))
+    print(f"[20a NR DL] one ldpc_decode of {BATCH} x {cfg.seg.C} code blocks (BG{cfg.seg.bg} Zc "
+          f"{cfg.seg.zc}, 10 iterations): {n_ldpc} kernels and copies, device busy "
+          f"{busy_ldpc:.2f} ms of {wall_ldpc:.2f} ms on the host clock (under the profiler); one "
+          f"polar_decode_list of the 2 L=4 candidates (K {code.K}, E {code.E}, N {code.N}, list "
+          f"8): {n_polar} kernels and copies, device busy {busy_polar:.2f} ms of "
+          f"{wall_polar:.2f} ms", flush=True)
+
+    def ue_dispatch():
+        for s in range(NR_SEARCHED):
+            dl.search(rx[s])
+        return pdsch.decode(rx)
+    _, n_sync, per = count_syncs(ue_dispatch, ((NrPdcch, "search", "dci_search"),
+                                               (NrPdsch, "decode", "pdsch_decode")))
+    print(f"[20a NR DL] host synchronisations (CUDA sync debug mode) in one dispatch of "
+          f"{NR_SEARCHED} DCI searches and the PDSCH decode of {BATCH} slots: {n_sync} = "
+          f"{n_sync / BATCH:.3f} per slot; by stage {per}; {smi}", flush=True)
+
+    phase_nr_path("20b NR DL 256QAM", NrChain("dl256"), NR_SEED + 1)
+    phase_nr_path("20c NR DL 2 layers", NrChain("mimo2"), NR_SEED + 2)
+    phase_nr_path("20d NR UL PUSCH", NrChain("ul"), NR_SEED + 3)
+    phase_nr_control(dl.carrier)
+    return ms
+
+
+def phase_nr_control(carrier):
+    """Phase 20d's control: PUCCH formats 0-4 and UCI (the block code and
+    the polar code with PC bits) as tests/test_nr_uci_pucch.py drives them,
+    and a CSI-RS measurement turned into a packed report carried on format
+    2 (tests/test_nr_csi.py); each on one slot through the gain 0.9 e^0.8j
+    and AWGN of 0.03 per component (0.05 and 0.02 for the CSI-RS and its
+    report), every payload equal to what was sent."""
+    from srslte_tpu_torch.phy.fec.polar import PolarCode
+    from srslte_tpu_torch.phy.nr import csi, csi_rs, uci_nr
+    from srslte_tpu_torch.phy.nr.params import NSYMB_SLOT
+    from srslte_tpu_torch.phy.nr.pucch_nr import NrPucch, NrPucchResource
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(NR_SEED + 4)
+    rng = np.random.default_rng(NR_SEED + 4)
+    empty = torch.zeros((NSYMB_SLOT, carrier.nof_re), dtype=torch.complex64, device="cuda")
+
+    def chan(g, n=0.03, h0=0.9 * np.exp(0.8j)):
+        z = torch.randn((2,) + g.shape, generator=gen, device="cuda") * n
+        return g * complex(h0) + torch.complex(z[0], z[1])
+
+    pu = NrPucch(carrier, slot=NR_SLOT)
+    done, t0 = [], time.perf_counter()
+    res = NrPucchResource(format=0, starting_prb=0, start_symbol=12, nof_symbols=2,
+                          initial_cyclic_shift=3)
+    for m_cs in (0, 6):
+        got, corr = pu.format0_measure(chan(pu.format0_encode(empty, res, m_cs)), res, (0, 6))
+        check(got == m_cs and corr > 0.7, f"PUCCH format 0: m_cs {got} (sent {m_cs}), {corr}")
+    done.append("format 0 (m_cs 0, 6)")
+    res = NrPucchResource(format=1, starting_prb=51, start_symbol=4, nof_symbols=10,
+                          initial_cyclic_shift=5, time_domain_occ=2)
+    for bits in ([0], [1], [0, 1], [1, 1]):
+        got, metric = pu.format1_decode(
+            chan(pu.format1_encode(empty, res, np.array(bits, np.uint8))), res, len(bits))
+        check(got.tolist() == bits and metric > 0.5, f"PUCCH format 1: {got} (sent {bits})")
+    done.append("format 1 (1 and 2 bits)")
+    cases = [(2, dict(starting_prb=10, start_symbol=13, nof_symbols=1, nof_prb=1), 4),
+             (2, dict(starting_prb=10, start_symbol=13, nof_symbols=1, nof_prb=2), 11),
+             (2, dict(starting_prb=10, start_symbol=13, nof_symbols=1, nof_prb=4), 22),
+             (2, dict(starting_prb=10, start_symbol=12, nof_symbols=2, nof_prb=2), 16),
+             (3, dict(starting_prb=20, start_symbol=10, nof_symbols=4, nof_prb=1), 16),
+             (3, dict(starting_prb=20, start_symbol=4, nof_symbols=10, nof_prb=2), 40),
+             (3, dict(starting_prb=20, start_symbol=0, nof_symbols=14, nof_prb=3,
+                      additional_dmrs=True), 60),
+             (4, dict(starting_prb=5, start_symbol=0, nof_symbols=14, occ_length=2,
+                      occ_index=0), 10),
+             (4, dict(starting_prb=5, start_symbol=0, nof_symbols=14, occ_length=2,
+                      occ_index=1), 14),
+             (4, dict(starting_prb=5, start_symbol=0, nof_symbols=14, occ_length=4,
+                      occ_index=2), 8)]
+    for fmt, kw, a in cases:
+        res = NrPucchResource(format=fmt, **kw)
+        uci = rng.integers(0, 2, a).astype(np.uint8)
+        enc, dec = ((pu.format2_encode, pu.format2_decode) if fmt == 2 else
+                    (pu.format34_encode, pu.format34_decode))
+        got, ok = dec(chan(enc(empty, res, uci, rnti=NR_RNTI)), res, a, rnti=NR_RNTI)
+        check(ok and np.array_equal(got, uci), f"PUCCH format {fmt} {kw}: {a} UCI bits")
+    done.append(f"formats 2-4 ({len(cases)} resources, UCI of 4-60 bits)")
+    # UCI alone through every regime, the polar ones with PC bits at K 18-25
+    pc = 0
+    for a, e in ((1, 24), (2, 24), (5, 64), (11, 96), (14, 160), (22, 300), (40, 512),
+                 (400, 2200)):
+        bits = rng.integers(0, 2, a).astype(np.uint8)
+        cw = uci_nr.uci_encode(torch.as_tensor(bits, device="cuda"), e).to(torch.float32)
+        y = (1 - 2 * cw) + 0.4 * torch.randn(cw.shape, generator=gen, device="cuda")
+        got, ok = uci_nr.uci_decode(-y * 8, a)
+        check(ok and np.array_equal(got, bits), f"UCI of {a} bits in {e}")
+        if a > 11:
+            _, _, k_r, e_r = uci_nr._polar_params(a, e)
+            pc += PolarCode(K=k_r, E=e_r, n_max=10, with_pc=True).n_pc > 0
+    noise = torch.as_tensor(rng.standard_normal(300).astype(np.float32) * 10, device="cuda")
+    check(not uci_nr.uci_decode(noise, 22)[1], "UCI: CRC passed on noise")
+    done.append(f"UCI 1-400 bits ({pc} of the polar codes with PC bits), none on noise")
+    # CSI: NZP-CSI-RS -> measure -> quantify -> pack -> format 2 -> unpack
+    res = csi_rs.NzpCsiRs(row=1, nof_rb=NR_PRB)
+    rx = chan(csi_rs.csi_rs_put(res, carrier, NR_SLOT, empty), n=0.05, h0=0.9 * np.exp(0.4j))
+    meas = csi_rs.csi_rs_measure(res, carrier, NR_SLOT, rx)
+    snr_db = float(meas["snr_db"])
+    want = 10 * np.log10(0.81 / (2 * 0.05 ** 2))
+    check(abs(snr_db - want) < 2.0, f"CSI-RS SNR {snr_db:.2f} dB, {want:.2f} dB expected")
+    cfg = csi.CsiReportCfg(periodic=csi.CsiPeriodic(period=10, offset=NR_SLOT))
+    check(csi.report_trigger(cfg, NR_SLOT), "CSI report not triggered")
+    report = csi.quantify(cfg, csi.CsiMeasurements(wideband_snr_db=snr_db))
+    pres = NrPucchResource(format=2, starting_prb=10, start_symbol=13, nof_symbols=1, nof_prb=1)
+    uci = csi.pack(cfg, report)
+    got, ok = pu.format2_decode(chan(pu.format2_encode(empty, pres, uci, rnti=NR_RNTI),
+                                     n=0.02, h0=0.9 * np.exp(0.4j)),
+                                pres, csi.nof_bits(cfg), rnti=NR_RNTI)
+    check(ok and csi.unpack(cfg, got) == report, f"CSI report {got} (sent {report})")
+    done.append(f"CSI (measured {snr_db:.2f} dB -> CQI {report.cqi}, packed, over format 2, "
+                f"unpacked equal)")
+    print(f"[20d NR UL control] every payload equal to what was sent: {'; '.join(done)}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def stack_profile(prof, wall_ms, label="A bulk"):
     """The device's busy share and top kernels over a bulk window."""
     rows, busy_us = device_rows(prof)
@@ -3189,6 +3631,8 @@ def main():
     lap("18 full stack")
     counts_s1 = phase_s1(smi, profile)
     lap("19 S1 wire")
+    phase_nr(smi, profile)
+    lap("20 NR PHY")
     counts = {"dl_f32": counts_dl, "dl_bf16": counts_dl16, **counts_ul, "dl_harq": counts_harq,
               "blind": counts_blind, **counts_sm2, **counts_sm4, **counts_rest, **counts_channel,
               "rails": counts_rails, "stack": counts_stack, "s1": counts_s1}

@@ -24,6 +24,9 @@ from ..._device import as_tensor, table
 # 36.212 §5.1.1 generator polynomials (including leading x^order term)
 LTE_CRC24A = (0x1864CFB, 24)
 LTE_CRC24B = (0x1800063, 24)
+NR_CRC24C = (0x1B2B117, 24)  # 38.212 §5.1 (PBCH/PDCCH NR)
+NR_CRC11 = (0xE21, 11)  # 38.212 §5.1 (UCI 20 <= A)
+NR_CRC6 = (0x61, 6)  # 38.212 §5.1 (UCI 12 <= A <= 19)
 LTE_CRC16 = (0x11021, 16)
 LTE_CRC8 = (0x19B, 8)
 

@@ -3,9 +3,11 @@
 Reference behavior: lib/src/phy/fec/turbo/{tc_interl_lte.c, turbocoder.c,
 rm_turbo.c}.  Construction:
 
-* The RSC constituent encoder is linear over GF(2), so batched encoding is a
-  single matrix product with a precomputed [K, 3(K+4)] generator matrix,
-  instead of the C library's byte-LUT serial pass (turbocoder.c:198+).
+* The RSC constituent encoder's feedback 1/(1 + D^2 + D^3) has an impulse
+  response of period 7, so a batch encodes with one integer prefix sum per
+  encoder and a few XORs (`_rsc_encode`), instead of the C library's
+  byte-LUT serial pass (turbocoder.c:198+); no per-K generator matrix is
+  kept.
 * QPP interleaving and rate matching are precomputed gather index vectors per
   static (K, rv, E) bucket; soft-combining at RX is one masked gather-sum.
 * Streams use the 36.212 d^(0)/d^(1)/d^(2) layout with the standard tail
@@ -25,7 +27,6 @@ import torch
 
 from ..._device import as_tensor, table
 from .cbsegm import cb_index
-from .crc import gf2_matmul
 
 TURBO_TAIL = 12  # total tail bits appended (4 per stream)
 RATE = 3
@@ -136,26 +137,53 @@ def turbo_encode_np(bits: np.ndarray) -> np.ndarray:
     return np.concatenate([d0, d1, d2], -1)
 
 
-@functools.lru_cache(maxsize=8)
-def _encoder_matrix(k: int) -> np.ndarray:
-    """GF(2) generator: dcat = (bits @ G) mod 2, G uint8 [K, 3*(K+4)].
+# Impulse response of the feedback 1/(1 + D^2 + D^3) over one period: the
+# polynomial is primitive, so the response repeats every 7 steps.
+_FB_TAPS = (0, 2, 3, 4)
 
-    Valid because the PCCC (feedback registers included) is linear with zero
-    initial state; built from impulse responses.
-    """
-    eye = np.eye(k, dtype=np.uint8)
-    return turbo_encode_np(eye).astype(np.uint8)
+
+def _rsc_encode(u):
+    """RSC over the batch: u [..., K] int32 -> (parity [..., K], tail_x
+    [..., 3], tail_z [..., 3]), equal to `_rsc_encode_np`.
+
+    The feedback bit is fb_i = XOR of u_j over j <= i with h_{(i-j) mod 7} = 1,
+    h = 1011100 (`_FB_TAPS`).  With S_j = u_j + u_{j-7} + u_{j-14} + ... (a
+    prefix sum along each residue class mod 7, one integer `cumsum`),
+    fb_i = S_i + S_{i-2} + S_{i-3} + S_{i-4} mod 2; the parity is
+    fb_i ^ fb_{i-1} ^ fb_{i-3}.  No per-K table is kept."""
+    k = u.shape[-1]
+    lead = u.shape[:-1]
+    rows = -(-k // 7)
+    pad = u.new_zeros(lead + (rows * 7 - k,))
+    s = torch.cumsum(torch.cat([u, pad], -1).reshape(lead + (rows, 7)), dim=-2,
+                     dtype=torch.int32).reshape(lead + (rows * 7,))[..., :k]
+    s = torch.cat([s.new_zeros(lead + (4,)), s], -1)  # S_j for j = -4 .. K-1
+    fb = sum(s[..., 4 - t : 4 - t + k] for t in _FB_TAPS) & 1
+    fbp = torch.cat([fb.new_zeros(lead + (3,)), fb], -1)  # fb_j for j = -3 .. K-1
+    par = fb ^ fbp[..., 2 : 2 + k] ^ fbp[..., :k]
+    # final state (s0, s1, s2) = (fb_{K-1}, fb_{K-2}, fb_{K-3}); the three
+    # tail steps of `trellis_tables` from it
+    s0, s1, s2 = fbp[..., -1], fbp[..., -2], fbp[..., -3]
+    tail_x = torch.stack([s1 ^ s2, s0 ^ s1, s0], -1)
+    tail_z = torch.stack([s0 ^ s2, s1, s0], -1)
+    return par, tail_x, tail_z
 
 
 def turbo_encode(bits, k: int, device=None):
     """Device turbo encoder: bits [..., K] {0,1} -> dcat [..., 3*(K+4)] uint8.
 
-    One float32 matrix product per bucket, exact because every sum is at most
-    K (the tails are affine-free: zero input gives zero state, so the linear
-    map is exact).
-    """
+    Both constituent encoders by the closed form of `_rsc_encode` (integer
+    prefix sums, exact); the interleaver is the cached QPP gather.  Equal to
+    `turbo_encode_np` bit for bit."""
     bits = as_tensor(bits, device)
-    return gf2_matmul(bits, ("turbo_g", k), lambda: _encoder_matrix(k)).to(torch.uint8)
+    u = bits.to(torch.int32)
+    pi = table(("qpp", k), u.device, lambda: qpp_perm(k).astype(np.int64))
+    z, tx, tz = _rsc_encode(u)
+    zp, txp, tzp = _rsc_encode(u[..., pi])
+    d0 = torch.cat([u, tx[..., :1], tz[..., 1:2], txp[..., :1], tzp[..., 1:2]], -1)
+    d1 = torch.cat([z, tz[..., :1], tx[..., 2:3], tzp[..., :1], txp[..., 2:3]], -1)
+    d2 = torch.cat([zp, tx[..., 1:2], tz[..., 2:3], txp[..., 1:2], tzp[..., 2:3]], -1)
+    return torch.cat([d0, d1, d2], -1).to(torch.uint8)
 
 
 # ------------------------------------------------------------- rate matching

@@ -407,6 +407,36 @@ def test_turbo_encode_and_rate_matching(k, e, f):
         np.asarray(j_turbo.rm_rx(jnp.asarray(llr), k, 0, f)), rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("k", [40, 1024, 6144])
+def test_turbo_encode_matches_reference(k):
+    """The closed-form encoder equals the reference's generator-matrix
+    product bit for bit (tails included)."""
+    bits = np.random.default_rng(k + 1).integers(0, 2, (3, k)).astype(np.uint8)
+    np.testing.assert_array_equal(t_turbo.turbo_encode(bits, k, device=CPU).numpy(),
+                                  np.asarray(j_turbo.turbo_encode(jnp.asarray(bits), k)))
+
+
+def test_turbo_encode_every_block_size():
+    """Equal to the reference's host encoder at all 188 code-block sizes of
+    36.212 table 5.1.3-3."""
+    rng = np.random.default_rng(188)
+    for k in j_turbo.cb_sizes():
+        bits = rng.integers(0, 2, (2, k)).astype(np.uint8)
+        np.testing.assert_array_equal(t_turbo.turbo_encode(bits, k, device=CPU).numpy(),
+                                      j_turbo.turbo_encode_np(bits), err_msg=f"K={k}")
+
+
+def test_turbo_encode_keeps_no_generator_matrix():
+    """Encoding keeps no per-K matrix among the device tables: only the
+    QPP permutation, K int64 values per size."""
+    from srslte_tpu_torch import _device
+
+    for k in (40, 512, 1024, 5824, 6144):
+        t_turbo.turbo_encode(np.zeros((1, k), np.uint8), k, device=CPU)
+        assert _device._TABLES[(("qpp", k), "cpu", None)].numel() == k
+    assert not [key for key in _device._TABLES if key[0][0] == "turbo_g"]
+
+
 def test_crc_ok_device():
     rng = np.random.default_rng(3)
     poly, order = t_crc.LTE_CRC16

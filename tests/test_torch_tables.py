@@ -208,7 +208,9 @@ def test_qpp_perm(k):
 def test_trellis_tables_and_encoder():
     for a, b in zip(j_turbo.trellis_tables(), t_turbo.trellis_tables()):
         eq(a, b)
-    eq(j_turbo._encoder_matrix(40), t_turbo._encoder_matrix(40))
+    # the port keeps no generator matrix: encoding the unit vectors gives it
+    eq(j_turbo._encoder_matrix(40), t_turbo.turbo_encode(np.eye(40, dtype=np.uint8), 40,
+                                                          device="cpu").numpy())
     bits = np.random.default_rng(1).integers(0, 2, (2, 104)).astype(np.uint8)
     eq(j_turbo.turbo_encode_np(bits), t_turbo.turbo_encode_np(bits))
 
@@ -579,6 +581,19 @@ def test_channel_path_shapes(mcs, bucket):
 
 
 # ------------------------------------------------ PUCCH, SRS, PRACH tables
+@pytest.mark.parametrize("name", ["polar_q1024.npy", "polar_il_pattern.npy", "ldpc_bg.npz"])
+def test_nr_fec_table_copies(name):
+    """The port's own copies of the NR FEC tables hold the same arrays."""
+    j = np.load(ROOT / "srslte_tpu/phy/fec" / name)
+    t = np.load(ROOT / "srslte_tpu_torch/phy/fec" / name)
+    if name.endswith(".npz"):
+        assert sorted(j.files) == sorted(t.files)
+        for k in j.files:
+            eq(j[k], t[k])
+    else:
+        eq(j, t)
+
+
 @pytest.mark.parametrize("npz", ["prach_roots.npz", "srs_bw.npz"])
 def test_npz_copies(npz):
     """The port's own copies of the JAX package's data files hold the same
