@@ -104,6 +104,27 @@ subframes, with the peak device memory of one dispatch per path:
   grant, PUCCH formats 0-4, UCI (block code, polar with PC bits) and a
   CSI-RS measurement packed into a CSI report on format 2.  Neither CUDA
   kernel runs on this path: LDPC and polar are plain PyTorch.
+- (phase 21) the NR stack at 52 PRB (NrCarrier(52, n_id 33),
+  Coreset.full(48, 1, id 1), the workers over all 52 PRB at mcs 20): 21a
+  GnbNrWorker / UeNrWorker with 8 TBs at 10.5 dB, the UE's blind DCI search,
+  PDSCH demodulation, HARQ soft combining (rv 0, 2, 3, 1) and a PUCCH format
+  1 ACK / NACK that the gNB decodes, slot by slot; 21b 16 packets ciphered
+  by NEA2 through GnbNrStack / UeNrStack (PDCP-NR, RLC UM-NR, the MAC-NR
+  PDU) at 16 dB; 21c the FAPI-like PNF / VNF split over loopback UDP; the
+  per-slot ACK / NACK, the delivery slots and the retransmissions equal to
+  the JAX package's on the same host-drawn noise, every packet once and in
+  order; ms per slot of each per-slot call (the DCI search apart), host
+  synchronisations per slot, the VNF's round trip, the memory of 16 soft
+  buffers.  Neither CUDA kernel runs on this path either;
+- (phase 22, the Viterbi's main path of the latest slice) the NB-IoT
+  downlink at 1.92 Msps (cell 257, RNTI 0x2345): 22a the example pair
+  (srslte_tpu_torch.examples.npdsch_enodeb's 8 frames, impaired by a delay,
+  a CFO and AWGN on the host, then npdsch_ue.receive: NPSS / NSSS cell
+  search, CFO correction, MIB-NB on NPBCH, the NPDCCH blind search, NPDSCH);
+  22b the longest grant, TBS 680 over 10 subframes (the Viterbi's [1, 704]
+  launch), 32 TBs on 2 NRS ports (Alamouti) and on 1, clean and at the SNR
+  the JAX package needs; counts at least the JAX package's on the same
+  samples, ms and Viterbi launches per stage.
 
 Exits non-zero on any failure, and when there is no CUDA device.  The line
 before the last is the card's name and power limit; the last line is
@@ -194,7 +215,12 @@ VIT_SHAPES = {"pbch": (8, 40),  # PBCH: 4 frame phases x 2 port hypotheses, MIB 
               # the C-RNTI search (UE-specific + common, up to 22) for 1A/0 and
               # for format 1 (39 bits, 16 UE-specific)
               "stack_common": (18, 44), "stack_1c": (18, 31), "stack_crnti": (22, 44),
-              "stack_f1": (16, 55)}
+              "stack_f1": (16, 55),
+              # phase 22, NB-IoT: NPBCH's 16 hypotheses (8 block phases x 2 port
+              # patterns) of MIB-NB + CRC16, one NPDCCH candidate (DCI N0/N1 +
+              # CRC16), 22a's NPDSCH (TBS 144 + CRC24) and 22b's (TBS 680 + 24)
+              "nb_npbch": (16, 50), "nb_npdcch": (1, 39), "nb_npdsch": (1, 168),
+              "nb_npdsch_max": (1, 704)}
 # The paths of the `kernels` line and the shape keys of their first SISO and
 # Viterbi launches; each kernel's top-level numbers are those of its main
 # path (MAIN_PATH).  The DL HARQ path's first launch is the DL shape (every
@@ -210,19 +236,21 @@ PATHS = {"dl_f32": ("dl", "dl"), "dl_bf16": ("dl", "dl"), "ul_f32": ("ul", "ul")
          "pmch": ("pmch", None), "dwpts": ("dwpts", None),
          "channel_epa5": ("epa", "dl"), "channel_eva70": ("eva", "dl"),
          "channel_etu300": ("etu", "dl"), "rails": ("sf", "pbch"), "stack": ("stack", "pbch"),
-         "s1": ("stack", "pbch")}
+         "s1": ("stack", "pbch"), "nbiot": (None, "nb_npbch")}
 KERNEL_PATHS = {"siso_windowed": ("dl_f32", "ul_f32", "dl_harq", "blind", "sm2_tm4", "sm2_tm3",
                                   "sm4", "pmch", "dwpts", "channel_epa5", "channel_eva70",
                                   "channel_etu300", "rails", "stack", "s1"),
                 "siso_windowed_bf16": ("dl_bf16", "ul_bf16", "channel_eva70"),
                 "viterbi_decode": ("dl_f32", "dl_bf16", "ul_f32", "ul_bf16", "blind", "sm2_tm4",
                                    "sm2_tm3", "sm4", "channel_epa5", "channel_eva70",
-                                   "channel_etu300", "rails", "stack", "s1")}
-# the main path of the latest slice (phase 19, the full stack over the S1
-# wire, whose first launches are phase 18's); it runs no 16-bit SISO, whose
-# numbers stay phase 16's (EVA70, a second dispatch on the same noise draw)
+                                   "channel_etu300", "rails", "stack", "s1", "nbiot")}
+# the main path of the latest slice that runs each kernel: the Viterbi's is
+# phase 22 (NB-IoT, whose first launch is the NPBCH's [16, 50]); the float32
+# SISO's phase 19 (the full stack over the S1 wire, whose first launches are
+# phase 18's), since neither NR phase (20, 21) nor NB-IoT runs a SISO; the
+# 16-bit SISO's phase 16 (EVA70, a second dispatch on the same noise draw)
 MAIN_PATH = {"siso_windowed": "s1", "siso_windowed_bf16": "channel_eva70",
-             "viterbi_decode": "s1"}
+             "viterbi_decode": "nbiot"}
 
 # The spatial-multiplexing DL (phases 13-15, `SmChain`): both TBs at mcs 27
 # over all 25 RBGs; DCI 2 at 2 ports carries precoding information 2, TM4
@@ -479,6 +507,67 @@ LDPC_GATE = (1, 64, 2.0, 50, 3, 12)
 
 DL_BUCKETS = {27: (63776, 82800, 11), 20: (39232, 82800, 7), 13: (22920, 55200, 4),
               6: (10296, 27600, 2)}
+
+# NR stack (phase 21, `nr_stack_scenario`): tests/test_nr_worker.py's
+# carrier NrCarrier(52, n_id 33) and Coreset.full(48, 1, id 1), the workers
+# over the whole carrier (PRB 0-51) at mcs 20 of the qam64 table (TBS 25104:
+# 3 BG1 code blocks of Zc 384), slots alternating 0 / 1 (`slot % 2`).
+# "harq": NRS_HARQ_TBS TBs at NRS_HARQ_SNR_DB (tests/test_nr_worker.py:93-95;
+# rv 0 alone fails at this width) with AWGN on the DL and on the PUCCH;
+# "stack": NRS_PACKETS ciphered packets (NEA2, NRS_KEY) through GnbNrStack /
+# UeNrStack at NRS_STACK_SNR_DB (tests/test_nr_stack.py; the UL clean, as
+# there), the sixth packet 2.5 TBs long; "vnf": NRS_VNF_SLOTS slots through GnbPnf / GnbVnf / UePnf / UeVnf
+# over loopback UDP (tests/test_vnf.py), noiseless.  AWGN is drawn on the
+# host from the scenario's seed (so tests/rehearse_nr_stack.py gives the JAX
+# package the same noise).
+NRS_PRB = 52
+NRS_CELL_ID = 33
+NRS_MCS = 20
+NRS_TBS = 25104
+NRS_HARQ_TBS = 8
+NRS_HARQ_SNR_DB = 10.5
+NRS_STACK_SNR_DB = 16.0
+NRS_PACKETS = 16
+NRS_VNF_SLOTS = 4
+NRS_MAX_SLOTS = {"harq": 48, "stack": 48}
+NRS_SEEDS = {"harq": 77, "stack": 3, "vnf": 4}
+NRS_KEY = bytes(range(16))
+# what the JAX package does on the same scenarios (python
+# tests/rehearse_nr_stack.py, on the CPU): per slot (HARQ pid, rv, the ACK
+# the gNB decodes), the slots at which a TB is delivered, and retransmissions;
+# for "vnf" the TBs delivered byte-equal and the ACKs that cleared their
+# process.  In "harq" every rv 0 transmission's LDPC blocks fail to converge
+# in the JAX package (slots 0, 2, ..., 14) and every rv 2 combine converges.
+_HARQ_SLOTS = tuple(x for _ in range(NRS_HARQ_TBS) for x in ((0, 0, "N"), (0, 2, "A")))
+NR_STACK_JAX = {
+    "harq": {"timeline": _HARQ_SLOTS, "delivered_at": tuple(range(1, 16, 2)), "n_retx": 8},
+    "stack": {"timeline": ((0, 0, "A"),) * 18, "delivered_at": tuple(range(18)), "n_retx": 0},
+    "vnf": {"delivered": 4, "acked": 4, "slots": 4}}
+
+# NB-IoT (phase 22): the reference example's cell (n_id 257) and RNTI 0x2345.
+# 22a: the example pair, examples/npdsch_enodeb.py's defaults (8 frames,
+# DCI N1 in frame 1 subframe 1, NPDSCH I_TBS 5 / I_SF 1: TBS 144 in
+# subframes 3-4), impaired as tests/test_nbiot_ue.py:_impair does;
+# 22b: the longest grant (I_TBS 4, I_SF 7: TBS 680 over 10 subframes, the
+# Viterbi's [1, 704] launch), NB_TBS TBs clean and at NB_SNR_DB, each on its
+# own 10 subframes of two frames (skipping subframes 0, 5 and 9 of even
+# frames), 2 NRS ports (Alamouti) through Npdsch(nof_ports=2).decode and 1
+# port through UeDlNbiot.decode_npdsch, which the reference builds for 1 port
+NB_ID = 257
+NB_RNTI = 0x2345
+NB_FRAMES = 8
+NB_IMPAIR = (1234, 120.0, 12.0, 1)  # delay (samples), CFO (Hz), SNR (dB), noise seed
+NB_LONG = (4, 7)  # I_TBS, I_SF
+NB_TBS = 32
+NB_SEED = 81
+# per port count: the lowest whole dB (below the mean power of the nonzero
+# samples) at which the JAX package decodes >= 95 % of the NB_TBS TBs
+# (python tests/rehearse_nbiot.py, on the CPU)
+NB_SNR_DB = {2: -9.0, 1: -10.0}
+# what the JAX package does on the same samples (the same script): 22a's
+# counts (cell, MIB, DCIs, TBs equal to the bits sent); per port count, the
+# indices of 22b's TBs it loses, clean and at NB_SNR_DB
+NB_JAX = {"example": (1, 1, 1, 1), "long2": ((), ()), "long1": ((), (21,))}
 
 
 def check(cond, msg):
@@ -811,7 +900,8 @@ def phase_kernels():
                                     (*VIT_SHAPES["dci2_4p"], (True,)),
                                     (*VIT_SHAPES["pbch4"], (True,)),
                                     *((*VIT_SHAPES[k], (True,)) for k in
-                                      ("stack_common", "stack_1c", "stack_crnti", "stack_f1")),
+                                      ("stack_common", "stack_1c", "stack_crnti", "stack_f1",
+                                       "nb_npbch", "nb_npdcch", "nb_npdsch", "nb_npdsch_max")),
                                     (1, 44, both), (77, 44, both),
                                     (3, 1, both), (viterbi_cuda.CANDIDATES_PER_BLOCK, 40, (True,)),
                                     (4, 704, both), (2, viterbi_cuda.max_length(True), (True,)),
@@ -2752,7 +2842,8 @@ def stack_gates(name, ues, enb, mme, sent, counts):
 
 
 def stack_timer(times, tti_end):
-    """call(label, fn, *args) for `stack_scenario` on the card: each call
+    """call(label, fn, *args) for `stack_scenario` (and phase 21's
+    scenarios) on the card: each call
     synchronised and timed on the host clock (ms into times[label]); the
     host time at the end of each TTI (its last call, EnbApp.rx_subframe)
     into tti_end."""
@@ -3510,6 +3601,463 @@ def phase_nr_control(carrier):
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
+def nr_stack_port(device):
+    """The port's NR stack entry points, for `nr_stack_scenario`, on
+    `device`; `noisy(grid, sigma, gen)` adds complex AWGN of sigma per
+    component drawn from the host generator `gen`."""
+    from srslte_tpu_torch import nr_stack, nr_worker, vnf
+    from srslte_tpu_torch.phy.nr import Coreset, NrCarrier
+
+    def noisy(grid, sigma, gen):
+        n = (torch.randn((2,) + tuple(grid.shape), generator=gen) * sigma).to(grid.device)
+        return grid + torch.complex(n[0], n[1])
+
+    return types.SimpleNamespace(
+        NrCarrier=NrCarrier, Coreset=Coreset,
+        NrWorkerCommon=functools.partial(nr_worker.NrWorkerCommon, device=device),
+        GnbNrWorker=nr_worker.GnbNrWorker, UeNrWorker=nr_worker.UeNrWorker,
+        GnbNrStack=nr_stack.GnbNrStack, UeNrStack=nr_stack.UeNrStack, vnf=vnf, noisy=noisy)
+
+
+def nr_stack_packets(tb_bytes):
+    """NRS_PACKETS seeded packets of 40-1500 bytes; the sixth spans several
+    RLC segments (2.5 TBs)."""
+    rng = np.random.default_rng(NRS_SEEDS["stack"])
+    sizes = [int(n) for n in rng.integers(40, 1500, NRS_PACKETS)]
+    sizes[5] = 5 * tb_bytes // 2
+    return [rng.integers(0, 256, n, dtype=np.uint8).tobytes() for n in sizes]
+
+
+def nr_stack_workers(pkg):
+    """(common, gNB worker, UE worker) of phase 21's deployment."""
+    car = pkg.NrCarrier(n_prb=NRS_PRB, n_id=NRS_CELL_ID)
+    cset = pkg.Coreset.full(48, duration=1, id=1)
+    common = pkg.NrWorkerCommon(carrier=car, coreset=cset, mcs=NRS_MCS, prb_start=0,
+                                n_prb=NRS_PRB)
+    check(common.phy_grant(0).tbs == NRS_TBS, f"NR stack TBS {common.phy_grant(0).tbs}")
+    return common, pkg.GnbNrWorker(common), pkg.UeNrWorker(common)
+
+
+def nr_stack_scenario(name, pkg, call=None):
+    """Scenario `name` ("harq", "stack", see NRS_PRB) of phase 21 on the
+    package `pkg` (`nr_stack_port`, or the JAX package's classes in
+    tests/rehearse_nr_stack.py).  call(label, fn, *args) makes each of the
+    three per-slot calls (default: a plain call).  Returns {"timeline": per
+    slot (pid, rv, "A" or "N" as the gNB decodes the PUCCH) or None when
+    idle, "delivered_at": the slots that delivered a TB, "n_retx", "dropped",
+    "slots", and the gates as {name: bool}}."""
+    call = call or (lambda label, fn, *args: fn(*args))
+    _, gnb, ue = nr_stack_workers(pkg)
+    rng = np.random.default_rng(NRS_SEEDS[name])
+    gen = torch.Generator()
+    gen.manual_seed(NRS_SEEDS[name])
+    if name == "harq":
+        sent = [rng.integers(0, 2, NRS_TBS).astype(np.uint8) for _ in range(NRS_HARQ_TBS)]
+        for bits in sent:
+            gnb.tx_data(bits)
+        snr, ul_noise = NRS_HARQ_SNR_DB, True
+    else:
+        gnb_s, ue_s = pkg.GnbNrStack(gnb, k_enc=NRS_KEY), pkg.UeNrStack(ue, k_enc=NRS_KEY)
+        sent = nr_stack_packets(NRS_TBS // 8)
+        for pkt in sent:
+            gnb_s.send_packet(pkt)
+        gnb_s.pump_tx()
+        n_tbs = len(gnb.queue)
+        snr, ul_noise = NRS_STACK_SNR_DB, False
+    sigma = 10 ** (-snr / 20) / math.sqrt(2)
+    timeline, delivered_at, got = [], [], []
+    slots = 0
+    while (gnb.queue or gnb._nacked or gnb._awaiting) and slots < NRS_MAX_SLOTS[name]:
+        slot = slots % 2
+        grid = call("tx_slot", gnb.tx_slot, slot)
+        slots += 1
+        if grid is None:
+            timeline.append(None)
+            continue
+        pid, rv = list(gnb._awaiting.items())[-1]
+        ul = call("rx_slot", ue.rx_slot, pkg.noisy(grid, sigma, gen), slot)
+        check(ul is not None, f"NR stack {name}: slot {slots - 1}: the UE found no DCI")
+        if ue.delivered:
+            delivered_at.append(slots - 1)
+            got.extend(ue.delivered if name == "harq" else ())
+        call("rx_ul_slot", gnb.rx_ul_slot, pkg.noisy(ul, sigma, gen) if ul_noise else ul, slot)
+        timeline.append((pid, rv, "N" if pid in gnb._nacked else "A"))
+        if name == "harq":
+            ue.delivered.clear()
+        else:
+            ue_s.pump_rx()
+    out = {"timeline": tuple(timeline), "delivered_at": tuple(delivered_at),
+           "n_retx": sum(1 for t in timeline if t is not None and t[1] != 0),
+           "dropped": gnb.dropped, "slots": slots}
+    gates = {"dropped == 0": gnb.dropped == 0, "all sent": not (gnb.queue or gnb._nacked
+                                                               or gnb._awaiting)}
+    if name == "harq":
+        gates["every TB delivered once, in order, equal to the bits sent"] = (
+            len(got) == len(sent) and all(np.array_equal(a, b) for a, b in zip(got, sent)))
+        gates["a retransmission"] = out["n_retx"] > 0
+    else:
+        out["tbs_queued"] = n_tbs
+        gates["the long packet took several TBs"] = n_tbs >= NRS_PACKETS + 2
+        gates["every packet once and in order"] = ue_s.received == sent
+        gates["pdcp.rx_next == packets"] = ue_s.pdcp.rx_next == len(sent)
+    out["gates"] = gates
+    return out
+
+
+def nr_vnf_scenario(pkg, call=None):
+    """Phase 21c on the package `pkg`: NRS_VNF_SLOTS slots, each with one
+    seeded MAC TB that GnbVnf (answering from a thread) hands to GnbPnf over
+    loopback UDP, the gNB worker encodes, UePnf decodes (noiseless) and
+    sends to UeVnf as DL_IND, and whose PUCCH ACK the gNB worker decodes.
+    Returns {"delivered": TBs byte-equal at UeVnf, "acked": slots whose ACK
+    cleared the HARQ process, "slots"}."""
+    import threading
+
+    call = call or (lambda label, fn, *args: fn(*args))
+    v = pkg.vnf
+    _, gnb, ue = nr_stack_workers(pkg)
+    # ephemeral loopback ports: bind to 0 then cross-wire (tests/test_vnf.py)
+    gnb_pnf_link = v._Udp(0, 0)
+    gnb_vnf_link = v._Udp(0, gnb_pnf_link.port)
+    gnb_pnf_link.peer = ("127.0.0.1", gnb_vnf_link.port)
+    ue_pnf_link = v._Udp(0, 0)
+    ue_vnf_link = v._Udp(0, ue_pnf_link.port)
+    ue_pnf_link.peer = ("127.0.0.1", ue_vnf_link.port)
+    links = (gnb_pnf_link, gnb_vnf_link, ue_pnf_link, ue_vnf_link)
+    gnb_pnf, gnb_vnf = v.GnbPnf(gnb, gnb_pnf_link), v.GnbVnf(gnb_vnf_link)
+    ue_pnf, ue_vnf = v.UePnf(ue, ue_pnf_link), v.UeVnf(ue_vnf_link)
+    rng = np.random.default_rng(NRS_SEEDS["vnf"])
+    delivered = acked = 0
+    try:
+        for tti in range(NRS_VNF_SLOTS):
+            tb = rng.integers(0, 256, NRS_TBS // 8, dtype=np.uint8).tobytes()
+            gnb_vnf.tx_queue.append(tb)
+            errors = []
+
+            def answer():
+                try:
+                    errors.append(gnb_vnf.handle_one() != v.SF_IND)
+                except Exception as e:  # a timeout fails the slot below
+                    errors.append(e)
+            th = threading.Thread(target=answer)
+            th.start()
+            grid = call("pnf.run_slot", gnb_pnf.run_slot, tti)
+            th.join()
+            check(errors == [False], f"VNF slot {tti}: the VNF's answer failed: {errors}")
+            check(grid is not None, f"VNF slot {tti}: the queued TB was not scheduled")
+            ul = call("ue_pnf.run_slot", ue_pnf.run_slot, grid, tti)
+            check(ul is not None, f"VNF slot {tti}: the UE found no DCI")
+            check(ue_vnf.handle_one() == v.DL_IND, f"VNF slot {tti}: no DL_IND")
+            call("rx_ul_slot", gnb.rx_ul_slot, ul, tti % gnb_pnf.slot_mod)
+            acked += not gnb._awaiting and not gnb._nacked
+            delivered += len(ue_vnf.rx_tbs) == tti + 1 and ue_vnf.rx_tbs[-1] == tb
+    finally:
+        for link in links:
+            link.close()
+    return {"delivered": delivered, "acked": acked, "slots": NRS_VNF_SLOTS}
+
+
+def nr_stack_gates(name, out):
+    """The scenario's own gates, and its timeline, delivery slots and
+    retransmissions equal to NR_STACK_JAX's."""
+    for gate, ok in out["gates"].items():
+        check(ok, f"21 NR stack {name}: {gate} fails ({out})")
+    want = NR_STACK_JAX[name]
+    got_t, want_t = out["timeline"], want["timeline"]
+    differ = [i for i in range(max(len(got_t), len(want_t)))
+              if (got_t[i] if i < len(got_t) else None) != (want_t[i] if i < len(want_t) else None)]
+    check(not differ, f"21 NR stack {name}: slots {differ} differ from the JAX package's "
+                      f"timeline: {got_t} against {want_t}")
+    check(out["delivered_at"] == want["delivered_at"] and out["n_retx"] == want["n_retx"],
+          f"21 NR stack {name}: delivered at {out['delivered_at']}, {out['n_retx']} retx; "
+          f"the JAX package: {want['delivered_at']}, {want['n_retx']}")
+
+
+def ms_stats(v):
+    return f"median {np.median(v):.2f}, max {np.max(v):.2f} ms ({len(v)} calls)"
+
+
+def phase_nr_stack(smi):
+    """Phase 21: the NR stack at 52 PRB (see NRS_PRB) on the card."""
+    from srslte_tpu_torch import nr_worker
+    from srslte_tpu_torch.mac.harq_nr import N_PROC_NR, NrDlHarqEntity
+    from srslte_tpu_torch.phy.nr import NrPdcch, NrPdsch
+
+    pkg = nr_stack_port("cuda")
+    reset_counts()
+    # 21a, HARQ: each per-slot call timed, the DCI search inside rx_slot apart
+    times, search = {}, []
+    t0 = time.perf_counter()
+    with wrapped(((NrPdcch, "search", "dci_search"),), call_timer(search)):
+        out = nr_stack_scenario("harq", pkg, stack_timer(times, []))
+    wall = time.perf_counter() - t0
+    nr_stack_gates("harq", out)
+    search_ms = [ms for _, ms in search]
+    rest = [a - b for a, b in zip(times["rx_slot"], search_ms)]
+    print(f"[21a NR HARQ] {NRS_HARQ_TBS} TBs of {NRS_TBS} bits at {NRS_HARQ_SNR_DB} dB over "
+          f"{out['slots']} slots in {wall:.1f} s: timeline {out['timeline']}; delivered at slots "
+          f"{out['delivered_at']}; {out['n_retx']} retransmissions, dropped {out['dropped']}; "
+          f"every TB delivered once, in order, equal to the bits sent; the timeline equal to the "
+          f"JAX package's", flush=True)
+    print(f"[21a NR HARQ] ms per slot on the host clock (each call synchronised): tx_slot "
+          f"{ms_stats(times['tx_slot'])}; rx_slot's DCI search {ms_stats(search_ms)}; the rest "
+          f"of rx_slot {ms_stats(rest)}; rx_ul_slot {ms_stats(times['rx_ul_slot'])}; {smi}",
+          flush=True)
+    # the 16 soft buffers of the UE's HARQ entity, each holding a first
+    # transmission that does not decode
+    common, _, _ = nr_stack_workers(pkg)
+    cfg = NrPdsch(common.carrier, rnti=common.rnti, slot=0, grant=common.phy_grant(0)).cfg
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    ent = NrDlHarqEntity()
+    for pid in range(N_PROC_NR):
+        ack, _ = ent.rx(pid, 0, torch.randn(cfg.G, generator=gen, device="cuda"), cfg)
+        check(not ack, "a soft buffer of random LLRs decoded")
+    held = sum(p.state.numel() * p.state.element_size() for p in ent.procs)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[21a NR HARQ] {N_PROC_NR} soft buffers held ({cfg.seg.C} x {cfg.graph.n_full} "
+          f"float32 each, {held / 1e6:.2f} MB): peak device memory {peak / 1e6:.1f} MB "
+          f"({(peak - before) / 1e6:.1f} MB above what was allocated before), {smi}", flush=True)
+    del ent
+
+    # 21b, the stack, its host synchronisations counted per stage
+    t0 = time.perf_counter()
+    out, n_sync, per = count_syncs(
+        lambda: nr_stack_scenario("stack", pkg),
+        ((nr_worker.GnbNrWorker, "tx_slot", "tx_slot"), (NrPdcch, "search", "dci_search"),
+         (nr_worker.UeNrWorker, "rx_slot", "rx_slot"),
+         (nr_worker.GnbNrWorker, "rx_ul_slot", "rx_ul_slot")))
+    wall = time.perf_counter() - t0
+    nr_stack_gates("stack", out)
+    print(f"[21b NR stack] {NRS_PACKETS} packets ciphered by NEA2 (one of {5 * NRS_TBS // 16} "
+          f"bytes over several RLC segments) in {out['tbs_queued']} TBs at {NRS_STACK_SNR_DB} dB "
+          f"over {out['slots']} slots in {wall:.1f} s: every packet once and in order, "
+          f"pdcp.rx_next {NRS_PACKETS}; timeline {out['timeline']}; host synchronisations "
+          f"{n_sync} = {n_sync / out['slots']:.2f} per slot, by stage {per} (rx_slot's include "
+          f"its DCI search's)", flush=True)
+
+    # 21c, the VNF split: the PNF's round trip to the VNF apart from its encode
+    times = {}
+    tx_ms = []
+    with wrapped(((nr_worker.GnbNrWorker, "tx_slot", "tx_slot"),), call_timer(tx_ms)):
+        out = nr_vnf_scenario(pkg, stack_timer(times, []))
+    check(out["delivered"] == out["slots"] and out["acked"] == out["slots"]
+          and out == NR_STACK_JAX["vnf"], f"21c VNF: {out}, the JAX package's "
+                                           f"{NR_STACK_JAX['vnf']}")
+    rtt = [a - b for a, (_, b) in zip(times["pnf.run_slot"], tx_ms)]
+    print(f"[21c NR VNF] {out['slots']} slots over loopback UDP: every TB byte-equal at the UE "
+          f"VNF and every ACK cleared its HARQ process; the PNF's round trip to the VNF (SF_IND "
+          f"to TX.request, apart from tx_slot) {ms_stats(rtt)}; UePnf.run_slot "
+          f"{ms_stats(times['ue_pnf.run_slot'])}", flush=True)
+    counts = read_counts()
+    print(f"[21 NR stack] CUDA kernel launches in phase 21: {counts} (LDPC and polar are plain "
+          f"PyTorch)", flush=True)
+
+
+def nb_impair(x, delay, cfo_hz, snr_db, seed):
+    """tests/test_nbiot_ue.py:_impair on the host: x [n] complex64 with a CFO,
+    AWGN at snr_db below the power of its nonzero samples and `delay`
+    samples of noise before it."""
+    rng = np.random.default_rng(seed)
+    x = np.asarray(x)
+    n = np.arange(len(x))
+    x = x * np.exp(2j * np.pi * cfo_hz * n / 1.92e6)
+    p = np.mean(np.abs(x[np.abs(x) > 0]) ** 2)
+    sigma = np.sqrt(p / 10 ** (snr_db / 10) / 2)
+    noise = sigma * (rng.standard_normal(len(x) + delay)
+                     + 1j * rng.standard_normal(len(x) + delay))
+    out = noise.astype(np.complex64)
+    out[delay:] += x.astype(np.complex64)
+    return out
+
+
+def nb_example_bits():
+    """The NPDSCH bits examples/npdsch_enodeb.generate sends (seed 0)."""
+    return np.random.default_rng(0).integers(0, 2, 144).astype(np.uint8)
+
+
+def nb_example_score(out):
+    """22a's counts: (cell found with the right id and frame position, MIB
+    decoded, DCIs found, TBs whose CRC passed and equal the bits sent)."""
+    if out is None:
+        return (0, 0, 0, 0)
+    cell = out["cell"]
+    delay = NB_IMPAIR[0]
+    cell_ok = int(cell["n_id"] == NB_ID and cell["frame_pos"] == 0
+                  and (cell["sf0_offset"] - delay) % (20 * 1920) in (0, 1, 20 * 1920 - 1))
+    mib_ok = int(out["mib"] is not None and out["mib"].sched_info_sib1 == 3
+                 and out["mib"].sys_info_tag == 1 and out["mib"].op_mode == 2)
+    bits = nb_example_bits()
+    tb_ok = sum(int(r["crc_ok"] and np.array_equal(np.asarray(r["bits"], np.uint8), bits))
+                for r in out["results"])
+    return (cell_ok, mib_ok, len(out["results"]), tb_ok)
+
+
+def nb_long_sf_nf():
+    """The 10 (subframe, frame) pairs of 22b's grant: frames 2 and 3,
+    skipping subframes 0 (NPBCH), 5 (NPSS) and 9 of even frames (NSSS)."""
+    pairs = [(s, nf) for nf in (2, 3) for s in range(10)
+             if s not in (0, 5) and not (s == 9 and nf % 2 == 0)]
+    return tuple(pairs[:10])
+
+
+def nb_long_samples(pkg, nof_ports, device):
+    """22b's stimulus on the package `pkg` (`nb_port`, or the JAX package's
+    in tests/rehearse_nbiot.py): NB_TBS TBs of NB_LONG, each NRS + NPDSCH on
+    10 subframes through the NB-IoT OFDM modulator, the ports summed.
+    Returns (bits [NB_TBS, tbs] uint8 numpy, samples [NB_TBS, 10, 1920]
+    complex64 numpy)."""
+    grant = pkg.NbDlGrant(*NB_LONG)
+    rng = np.random.default_rng(NB_SEED + nof_ports)
+    bits = rng.integers(0, 2, (NB_TBS, grant.tbs)).astype(np.uint8)
+    sf_nf = nb_long_sf_nf()
+    enb = pkg.NbEnbDl(NB_ID, nof_ports)
+    npdsch = pkg.Npdsch(NB_ID, grant, NB_RNTI, nof_ports=nof_ports)
+    nrs = [enb._put_nrs(pkg.zeros((2, 14, 12), device), s) for s, _ in sf_nf]
+    out = []
+    for b in bits:
+        grids = npdsch.encode(pkg.asarray(b, device), nrs, sf_nf)
+        s = pkg.NbOfdm().tx_sf(pkg.stack(grids))  # [10, 2, 1920]
+        out.append(pkg.numpy(s[:, :nof_ports].sum(1)))
+    return bits, np.stack(out).astype(np.complex64)
+
+
+def nb_long_noisy(x, snr_db, seed):
+    """x [B, 10, 1920] with AWGN snr_db below the mean power of its nonzero
+    samples, drawn on the host from `seed`."""
+    rng = np.random.default_rng(seed)
+    p = np.mean(np.abs(x[np.abs(x) > 0]) ** 2)
+    sigma = np.sqrt(p / 10 ** (snr_db / 10) / 2)
+    n = sigma * (rng.standard_normal(x.shape) + 1j * rng.standard_normal(x.shape))
+    return (x + n).astype(np.complex64)
+
+
+def nb_port():
+    """The port's NB-IoT classes for `nb_long_samples`."""
+    from srslte_tpu_torch.phy.nbiot.npdsch import NbDlGrant, Npdsch
+    from srslte_tpu_torch.phy.nbiot.ue import NbEnbDl, NbOfdm
+
+    return types.SimpleNamespace(
+        NbDlGrant=NbDlGrant, Npdsch=Npdsch, NbEnbDl=NbEnbDl, NbOfdm=NbOfdm,
+        zeros=lambda shape, dev: torch.zeros(shape, dtype=torch.complex64, device=dev),
+        asarray=lambda a, dev: torch.as_tensor(a, device=dev), stack=torch.stack,
+        numpy=lambda t: t.cpu().numpy())
+
+
+def nb_long_decode(x, nof_ports, device):
+    """Decode each TB of 22b's samples x [B, 10, 1920] on the port: the UE's
+    fft_estimate per subframe, then Npdsch(nof_ports=2).decode or, for 1
+    port, UeDlNbiot.decode_npdsch.  Returns (bits [B, tbs], crc ok [B])."""
+    from srslte_tpu_torch.phy.nbiot.npdsch import NbDlGrant, Npdsch
+    from srslte_tpu_torch.phy.nbiot.ue import UeDlNbiot
+
+    grant = NbDlGrant(*NB_LONG)
+    sf_nf = nb_long_sf_nf()
+    ue = UeDlNbiot(NB_ID)
+    x = torch.as_tensor(x, device=device)
+    bits, oks = [], []
+    for b in range(x.shape[0]):
+        est = [ue.fft_estimate(x[b, i], s) for i, (s, _) in enumerate(sf_nf)]
+        grids = torch.stack([g for g, _, _ in est])
+        ces = torch.stack([c for _, c, _ in est])
+        if nof_ports == 2:
+            out, ok = Npdsch(NB_ID, grant, NB_RNTI, nof_ports=2).decode(grids, ces, sf_nf)
+        else:
+            out, ok = ue.decode_npdsch(grids, ces, sf_nf, grant, NB_RNTI)
+        bits.append(out)
+        oks.append(ok)
+    return torch.stack(bits).cpu().numpy(), torch.stack(oks).cpu().numpy()
+
+
+def nb_stage_hooks():
+    """The stages of the NB-IoT receiver, as (owner, attribute, name)."""
+    from srslte_tpu_torch.phy.nbiot.npbch import Npbch
+    from srslte_tpu_torch.phy.nbiot.npdsch import Npdsch
+    from srslte_tpu_torch.phy.nbiot.ue import UeCellSearchNbiot, UeDlNbiot
+
+    return ((UeCellSearchNbiot, "search", "cell_search"), (Npbch, "decode", "mib"),
+            (UeDlNbiot, "search_npdcch", "dci_search"), (Npdsch, "decode", "npdsch_decode"))
+
+
+def nb_stage_recorder(times, launches):
+    """A `wrapped` wrap: each call synchronised and timed (ms into
+    times[name]) and its Viterbi launches counted (into launches[name])."""
+    from srslte_tpu_torch.ops import viterbi_cuda
+
+    def wrap(fn, name):
+        def call(*args, **kw):
+            torch.cuda.synchronize()
+            n0 = viterbi_cuda.viterbi_decode.launches
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            times.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
+            launches[name] = launches.get(name, 0) + viterbi_cuda.viterbi_decode.launches - n0
+            return out
+        return call
+    return wrap
+
+
+def phase_nbiot(smi):
+    """Phase 22: NB-IoT (see NB_ID) on the card.  Returns the kernel launch
+    counts of the `nbiot` path (22a and 22b)."""
+    from srslte_tpu_torch.examples import npdsch_enodeb, npdsch_ue
+
+    reset_counts()
+    # 22a: the example pair on the card, the capture impaired on the host
+    t0 = time.perf_counter()
+    sig = npdsch_enodeb.generate(NB_ID, NB_RNTI, NB_FRAMES, 5, 1, device="cuda")
+    gen_s = time.perf_counter() - t0
+    check(sig.shape == (NB_FRAMES * 19200,) and np.isfinite(sig).all(), "22a: capture")
+    x = nb_impair(sig, *NB_IMPAIR)
+    times, launches = {}, {}
+    t0 = time.perf_counter()
+    with wrapped(nb_stage_hooks(), nb_stage_recorder(times, launches)):
+        out = npdsch_ue.receive(x, NB_RNTI, device="cuda")
+    wall = time.perf_counter() - t0
+    score = nb_example_score(out)
+    want = NB_JAX["example"]
+    check(all(g >= w for g, w in zip(score, want)),
+          f"22a: (cell, MIB, DCIs, TBs equal to the bits sent) {score}, the JAX package's {want}")
+    check(all(np.array_equal(r["bits"], nb_example_bits()) for r in out["results"] if r["crc_ok"]),
+          "22a: a TB that passed its CRC differs from the bits sent")
+    stages = "; ".join(f"{k} {ms_stats(v)}, {launches.get(k, 0)} Viterbi launches"
+                       for k, v in times.items())
+    print(f"[22a NB-IoT example pair] {NB_FRAMES} frames generated on the card in {gen_s:.2f} s, "
+          f"delay {NB_IMPAIR[0]}, CFO {NB_IMPAIR[1]} Hz, {NB_IMPAIR[2]} dB; receive in "
+          f"{wall:.2f} s: (cell, MIB, DCIs, TBs) {score} (the JAX package's {want}); cell "
+          f"{out['cell']['n_id']}, CFO {out['cell']['cfo_hz']:.1f} Hz; stages: {stages}; {smi}",
+          flush=True)
+
+    # 22b: the longest grant, 2 ports and 1
+    for nof_ports in (2, 1):
+        t0 = time.perf_counter()
+        bits, x = nb_long_samples(nb_port(), nof_ports, "cuda")
+        enc_s = time.perf_counter() - t0
+        for name, xi in (("clean", x), (f"{NB_SNR_DB[nof_ports]} dB",
+                                        nb_long_noisy(x, NB_SNR_DB[nof_ports], NB_SEED))):
+            times, launches = {}, {}
+            with wrapped(nb_stage_hooks(), nb_stage_recorder(times, launches)):
+                got, ok = nb_long_decode(xi, nof_ports, "cuda")
+            n_ok = int(ok.sum())
+            check(all(np.array_equal(g, b) for g, b, o in zip(got, bits, ok) if o),
+                  f"22b {nof_ports} port(s), {name}: a TB that passed its CRC differs")
+            lost = tuple(np.flatnonzero(~ok).tolist())
+            want = NB_JAX[f"long{nof_ports}"][0 if name == "clean" else 1]
+            check(set(lost) <= set(want), f"22b {nof_ports} port(s), {name}: TBs {lost} lost, "
+                                          f"the JAX package loses {want}")
+            print(f"[22b NB-IoT TBS 680 over 10 subframes, {nof_ports} port(s), {name}] "
+                  f"{n_ok}/{NB_TBS} TBs, lost {lost} (the JAX package loses {want}), each "
+                  f"decoded TB equal to the bits sent; "
+                  f"NPDSCH decode {ms_stats(times['npdsch_decode'])}, "
+                  f"{launches['npdsch_decode']} Viterbi launches of [1, 704]; stimulus built on "
+                  f"the card in {enc_s:.2f} s; {smi}", flush=True)
+    return read_counts()
+
+
 def stack_profile(prof, wall_ms, label="A bulk"):
     """The device's busy share and top kernels over a bulk window."""
     rows, busy_us = device_rows(prof)
@@ -3633,9 +4181,14 @@ def main():
     lap("19 S1 wire")
     phase_nr(smi, profile)
     lap("20 NR PHY")
+    phase_nr_stack(smi)
+    lap("21 NR stack")
+    counts_nbiot = phase_nbiot(smi)
+    lap("22 NB-IoT")
     counts = {"dl_f32": counts_dl, "dl_bf16": counts_dl16, **counts_ul, "dl_harq": counts_harq,
               "blind": counts_blind, **counts_sm2, **counts_sm4, **counts_rest, **counts_channel,
-              "rails": counts_rails, "stack": counts_stack, "s1": counts_s1}
+              "rails": counts_rails, "stack": counts_stack, "s1": counts_s1,
+              "nbiot": counts_nbiot}
     print(f"[wall] seconds per phase: {', '.join(f'{k} {v:.1f}' for k, v in walls.items())}; "
           f"total {time.perf_counter() - t_all:.1f}", flush=True)
     line = []

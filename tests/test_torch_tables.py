@@ -114,7 +114,13 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
                 "s1ap/__init__.py", "s1ap/aper.py", "s1ap/messages.py", "net/s1_transport.py",
                 "epc/gtpc.py", "enb_s1.py", "epc/wire.py", "epc/mbms_gw.py", "net/tun.py",
                 "ttcn3.py", "utils/config.py", "utils/crash.py", "utils/metrics.py",
-                "utils/pcap.py", "utils/sysmetrics.py", "utils/tprof.py", "utils/trace.py"):
+                "utils/pcap.py", "utils/sysmetrics.py", "utils/tprof.py", "utils/trace.py",
+                # the NR stack and the NB-IoT downlink
+                "mac/pdu_nr.py", "mac/harq_nr.py", "rlc/um_nr.py", "rlc/am_nr.py",
+                "pdcp/entity_nr.py", "nr_worker.py", "nr_stack.py", "vnf.py",
+                "phy/nbiot/__init__.py", "phy/nbiot/nrs.py", "phy/nbiot/sync.py",
+                "phy/nbiot/npdsch.py", "phy/nbiot/npdcch.py", "phy/nbiot/npbch.py",
+                "phy/nbiot/ue.py", "examples/npdsch_enodeb.py", "examples/npdsch_ue.py"):
         assert f"srslte_tpu_torch/{mod}" in names, mod
     hits = [f"{f.relative_to(ROOT)}:{i + 1}: {line}"
             for f in files for i, line in enumerate(f.read_text().splitlines())
@@ -763,3 +769,55 @@ def test_channel_exports():
         names = {n for n in dir(j) if not n.startswith("_")
                  and getattr(getattr(j, n), "__module__", "").startswith("srslte_tpu")}
         assert names and all(hasattr(t, n) for n in names), (j.__name__, names)
+
+
+# ------------------------------------------------------------------ NB-IoT
+def test_nbiot_table_copies():
+    """The port's copies of the NB-IoT tables: TBS and subframe counts, the
+    NPSS sequence and replica, the NSSS bank, the NSSS RE order, the NRS
+    positions and values, the NPDSCH and NPBCH RE maps."""
+    import srslte_tpu.phy.nbiot as j_nb
+    import srslte_tpu.phy.nbiot.npbch as j_npbch
+    import srslte_tpu.phy.nbiot.npdsch as j_npdsch
+    import srslte_tpu.phy.nbiot.nrs as j_nrs
+    import srslte_tpu.phy.nbiot.sync as j_nsync
+    import srslte_tpu.phy.nbiot.ue as j_nue
+    import srslte_tpu_torch.phy.nbiot as t_nb
+    import srslte_tpu_torch.phy.nbiot.npbch as t_npbch
+    import srslte_tpu_torch.phy.nbiot.npdsch as t_npdsch
+    import srslte_tpu_torch.phy.nbiot.nrs as t_nrs
+    import srslte_tpu_torch.phy.nbiot.sync as t_nsync
+    import srslte_tpu_torch.phy.nbiot.ue as t_nue
+
+    assert t_npdsch.TBS_TABLE_NB == j_npdsch.TBS_TABLE_NB
+    assert t_npdsch.NOF_SF_TABLE == j_npdsch.NOF_SF_TABLE
+    for i_tbs in range(13):
+        for i_sf in range(8):
+            if j_npdsch.TBS_TABLE_NB[i_tbs][i_sf]:
+                g = t_npdsch.NbDlGrant(i_tbs, i_sf)
+                assert (g.tbs, g.nof_sf) == (j_npdsch.NbDlGrant(i_tbs, i_sf).tbs,
+                                             j_npdsch.NbDlGrant(i_tbs, i_sf).nof_sf)
+    eq(t_nsync.NPSS_COVER, j_nsync.NPSS_COVER)
+    assert (t_nsync.NPSS_ROOT, t_nsync.NSSS_LEN) == (j_nsync.NPSS_ROOT, j_nsync.NSSS_LEN)
+    eq(t_nsync.npss_sequence(), j_nsync.npss_sequence())
+    eq(t_nsync.npss_time(), j_nsync.npss_time())
+    eq(t_nsync._nsss_bank(), j_nsync._nsss_bank())
+    eq(t_nsync._hadamard128(), j_nsync._hadamard128())
+    for nid, fpos in ((0, 0), (257, 3), (503, 2)):
+        eq(t_nsync.nsss_sequence(nid, fpos), j_nsync.nsss_sequence(nid, fpos))
+    eq(t_nue.nsss_re_order(), j_nue.nsss_re_order())
+    assert (t_nue.HOST_PRB, t_nue.NB_RE0, t_nue.SYNC_SYMBOLS) == (
+        j_nue.HOST_PRB, j_nue.NB_RE0, j_nue.SYNC_SYMBOLS)
+    assert (t_nrs.NRS_SYMBOLS, t_nrs.MAX_PRB) == (j_nrs.NRS_SYMBOLS, j_nrs.MAX_PRB)
+    for nid in (0, 1, 257, 503):
+        for port in (0, 1):
+            eq(t_nrs.nrs_subcarriers(nid, port), j_nrs.nrs_subcarriers(nid, port))
+            eq(t_npdsch.npdsch_re_indices(nid, port + 1), j_npdsch.npdsch_re_indices(nid, port + 1))
+            assert t_nrs.nrs_reserved_sc(nid, port + 1) == j_nrs.nrs_reserved_sc(nid, port + 1)
+        for sf in range(10):
+            eq(t_nrs.nrs_values(nid, sf), j_nrs.nrs_values(nid, sf))
+        eq(t_npbch.npbch_re_indices(nid), j_npbch.npbch_re_indices(nid))
+    assert (t_npbch.MIB_NB_LEN, t_npbch.PAYLOAD, t_npbch.E_TOTAL, t_npbch.E_BLOCK,
+            t_npbch.NPBCH_SYMBOLS) == (j_npbch.MIB_NB_LEN, j_npbch.PAYLOAD, j_npbch.E_TOTAL,
+                                       j_npbch.E_BLOCK, j_npbch.NPBCH_SYMBOLS)
+    assert {n for n in dir(j_nb) if not n.startswith("_")} <= set(dir(t_nb))
