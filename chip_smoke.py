@@ -124,7 +124,31 @@ subframes, with the peak device memory of one dispatch per path:
   22b the longest grant, TBS 680 over 10 subframes (the Viterbi's [1, 704]
   launch), 32 TBs on 2 NRS ports (Alamouti) and on 1, clean and at the SNR
   the JAX package needs; counts at least the JAX package's on the same
-  samples, ms and Viterbi launches per stage.
+  samples, ms and Viterbi launches per stage;
+- (phase 23, the main path of both kernels in the latest slice) sidelink
+  TM1/2 at 50 PRB (normal CP, N_SL_ID 168, the flat channel of
+  tests/test_sidelink.py with AWGN drawn on the host per RE): 23a the sync
+  subframe of four ids (PSSS, coherent SSSS, the PSBCH's MIB-SL through a
+  [1, 56] Viterbi); 23b 128 subframes received one by one as the reference's
+  control/data flow test does (the SCI-0 from the PSCCH through a [1, 59]
+  Viterbi, then the PSSCH it describes: 48 PRB at mcs 20, 4 code blocks of K
+  5184), clean and at SL_SNR_DB, and 16 grids of noise alone on the PSCCH;
+  23c 128 subframes of one subframe index through one Pssch.decode (the SISO
+  at B 512), timed; every id, MIB and SCI right, every TB clean, the lost
+  TBs at SL_SNR_DB among the JAX package's on the same grids;
+- (phase 24) the scale-out modules on 8 virtual shards of the one card
+  (a mesh over [cuda:0] * 8): 24a ShardedDlPipeline on phase 5's deployment,
+  8 carriers x 16 subframes, against the unsharded e2e; 24b
+  TimeShardedDlChain at 100 PRB, 128 subframes through a 3-tap channel,
+  rx against rx_sharded over 2 and 8 shards (bits, flags and the channel
+  estimate equal; the halo carries state); 24c sharded_pss_search over a 20
+  MHz stream of 128 subframes against pss_find_peak; ms sharded and
+  unsharded (no scaling is claimed: the shards share one card);
+- (phase 25) the JAX package's remaining entry points, ported: 25a
+  examples.cell_search.scan on phase 12's capture (cell 301 and phase 12's
+  MIB); 25b examples.run_epc, run_enb and run_ue as three processes, the
+  eNB and the UE on the card: attach and the SGi echo, each process held
+  to 300 s.
 
 Exits non-zero on any failure, and when there is no CUDA device.  The line
 before the last is the card's name and power limit; the last line is
@@ -202,7 +226,13 @@ SISO_SHAPES = {"dl": (BATCH * 11, 5824, 256, 32),  # 11 code blocks of K 5824 pe
                # block sizes its TBs give (phase 19 checks that every (K, L,
                # T) it launches is held here)
                "s1_k280": (1, 280, 128, 32), "s1_k704": (1, 704, 128, 32),
-               "s1_k3008": (1, 3008, 256, 32), "s1_k4800": (2, 4800, 256, 32)}
+               "s1_k3008": (1, 3008, 256, 32), "s1_k4800": (2, 4800, 256, 32),
+               # phase 23, the sidelink: one subframe's PSSCH (4 code blocks of
+               # K 5184, 16QAM mcs 20 over 48 PRB), then 23c's batch of 128
+               # subframes; phase 24, one shard's 16 subframes of phase 5's
+               # deployment (11 x K 5824 each) on the carrier and the time axis
+               "sl_sf": (4, 5184, 256, 32), "sl_batch": (BATCH * 4, 5184, 256, 32),
+               "scale": (16 * 11, 5824, 256, 32)}
 VIT_SHAPES = {"pbch": (8, 40),  # PBCH: 4 frame phases x 2 port hypotheses, MIB + CRC16
               "dl": (BATCH * 18, 44),  # 18 PDCCH candidates, DCI 1A + CRC16
               "ul": (BATCH, 38),  # one long CQI per subframe: 30 bits + CRC8, tail-biting
@@ -220,7 +250,10 @@ VIT_SHAPES = {"pbch": (8, 40),  # PBCH: 4 frame phases x 2 port hypotheses, MIB 
               # patterns) of MIB-NB + CRC16, one NPDCCH candidate (DCI N0/N1 +
               # CRC16), 22a's NPDSCH (TBS 144 + CRC24) and 22b's (TBS 680 + 24)
               "nb_npbch": (16, 50), "nb_npdcch": (1, 39), "nb_npdsch": (1, 168),
-              "nb_npdsch_max": (1, 704)}
+              "nb_npdsch_max": (1, 704),
+              # phase 23, the sidelink: the PSBCH (MIB-SL of 40 bits + CRC16) and
+              # the PSCCH at 50 PRB (SCI-0 of 43 bits + CRC16), one grid each
+              "sl_psbch": (1, 56), "sl_pscch": (1, 59)}
 # The paths of the `kernels` line and the shape keys of their first SISO and
 # Viterbi launches; each kernel's top-level numbers are those of its main
 # path (MAIN_PATH).  The DL HARQ path's first launch is the DL shape (every
@@ -236,21 +269,25 @@ PATHS = {"dl_f32": ("dl", "dl"), "dl_bf16": ("dl", "dl"), "ul_f32": ("ul", "ul")
          "pmch": ("pmch", None), "dwpts": ("dwpts", None),
          "channel_epa5": ("epa", "dl"), "channel_eva70": ("eva", "dl"),
          "channel_etu300": ("etu", "dl"), "rails": ("sf", "pbch"), "stack": ("stack", "pbch"),
-         "s1": ("stack", "pbch"), "nbiot": (None, "nb_npbch")}
+         "s1": ("stack", "pbch"), "nbiot": (None, "nb_npbch"), "sidelink": ("sl_sf", "sl_psbch"),
+         "scale_carrier": ("scale", None), "scale_time": ("scale", None)}
 KERNEL_PATHS = {"siso_windowed": ("dl_f32", "ul_f32", "dl_harq", "blind", "sm2_tm4", "sm2_tm3",
                                   "sm4", "pmch", "dwpts", "channel_epa5", "channel_eva70",
-                                  "channel_etu300", "rails", "stack", "s1"),
+                                  "channel_etu300", "rails", "stack", "s1", "sidelink",
+                                  "scale_carrier", "scale_time"),
                 "siso_windowed_bf16": ("dl_bf16", "ul_bf16", "channel_eva70"),
                 "viterbi_decode": ("dl_f32", "dl_bf16", "ul_f32", "ul_bf16", "blind", "sm2_tm4",
                                    "sm2_tm3", "sm4", "channel_epa5", "channel_eva70",
-                                   "channel_etu300", "rails", "stack", "s1", "nbiot")}
-# the main path of the latest slice that runs each kernel: the Viterbi's is
-# phase 22 (NB-IoT, whose first launch is the NPBCH's [16, 50]); the float32
-# SISO's phase 19 (the full stack over the S1 wire, whose first launches are
-# phase 18's), since neither NR phase (20, 21) nor NB-IoT runs a SISO; the
+                                   "channel_etu300", "rails", "stack", "s1", "nbiot",
+                                   "sidelink")}
+# the main path of the latest slice that runs each kernel: phase 23 (the
+# sidelink, whose first Viterbi launch is 23a's PSBCH [1, 56] and whose first
+# SISO launch is 23b's first PSSCH, B 4 K 5184) for the float32 SISO and the
+# Viterbi; the scale-out paths (phase 24a's sharded step, 24b's 8-shard
+# receive) launch the SISO at one shard's B 176 K 5824 and no Viterbi; the
 # 16-bit SISO's phase 16 (EVA70, a second dispatch on the same noise draw)
-MAIN_PATH = {"siso_windowed": "s1", "siso_windowed_bf16": "channel_eva70",
-             "viterbi_decode": "nbiot"}
+MAIN_PATH = {"siso_windowed": "sidelink", "siso_windowed_bf16": "channel_eva70",
+             "viterbi_decode": "sidelink"}
 
 # The spatial-multiplexing DL (phases 13-15, `SmChain`): both TBs at mcs 27
 # over all 25 RBGs; DCI 2 at 2 ports carries precoding information 2, TM4
@@ -568,6 +605,61 @@ NB_SNR_DB = {2: -9.0, 1: -10.0}
 # counts (cell, MIB, DCIs, TBs equal to the bits sent); per port count, the
 # indices of 22b's TBs it loses, clean and at NB_SNR_DB
 NB_JAX = {"example": (1, 1, 1, 1), "long2": ((), ()), "long1": ((), (21,))}
+
+# Sidelink TM1/2, normal CP (phase 23, the main path of both kernels in the
+# latest slice): a 10 MHz carrier (50 PRB, the widest bandwidth the JAX
+# package's sidelink tests use, tests/test_sidelink.py:99, :178) and the
+# JAX test's flat channel SL_H (:19-22) with AWGN drawn on the host per RE.
+# 23a: a sync subframe (PSSS, SSSS, the PSBCH in the centre 6 PRB) per id of
+# SL_SYNC_IDS, at the test's noise; 23b: SL_N subframes (sf_idx = i mod 10),
+# each the SCI-0 on the PSCCH (PRB 0, cyclic shift 3) and its PSSCH over
+# PRBs 2-49 at mcs 20 for N_X_ID = SL_ID, received as
+# test_sidelink_control_data_flow receives it (:132-157): SCI, then the
+# PSSCH the SCI describes; SL_NOISE_ONLY grids of noise alone through the
+# PSCCH decoder; 23c: SL_N subframes of one sf_idx through one Pssch.decode
+SL_PRB = 50
+SL_ID = 168  # N_SL_ID, and the PSSCH's N_X_ID (the SCI's group_dst_id)
+SL_SYNC_IDS = (0, 167, 168, 335)
+SL_MIB = dict(bandwidth=3, direct_frame=517, direct_subframe=9, in_coverage=1)  # sl-Bandwidth n50
+SL_PSCCH = (0, 3)  # PRB, DMRS cyclic shift
+SL_ALLOC = (2, 48)  # first PRB, PRBs: the SCI's RIV
+SL_MCS = 20
+SL_BUCKET = (20616, 27648, 4, 5184)  # TBS, G, code blocks, K (16QAM; E 6912)
+SL_H = 0.9 * np.exp(0.6j)
+SL_SYNC_NOISE = 0.02  # per component, as the test's _chan
+SL_N = 128
+SL_NOISE_ONLY = 16
+SL_BATCH_SF_IDX = 5
+SL_SEEDS = {"sf": 71, "batch": 72}  # the TBs; their AWGN from the seed + 1000
+# the lowest whole dB (per RE, over the received data power |SL_H|^2) at
+# which the JAX package decodes >= 95 % of the first 32 TBs of 23b's
+# stimulus, and the TBs it loses there of 23b's and 23c's SL_N
+# (`python tests/rehearse_sidelink.py`, on the CPU, the same host-drawn grids)
+SL_SNR_DB = 13.0
+SL_JAX = {"sf": (), "batch": ()}
+
+# Scale-out on virtual shards of the one card (phase 24): 24a phase 5's
+# deployment (Cell(100, id 1), DlGrant.full(100, 27), subframe 4, RNTI
+# 0x46) through ShardedDlPipeline on SCALE_SHARDS carriers of SCALE_SF
+# subframes each, mesh {"carrier": 8}; 24b TimeShardedDlChain on Cell(100,
+# id 3) and DlGrant.full(100, 27) (subframe 4's geometry, CFI 1), SL_N
+# subframes through tests/test_time_shard.py's 3-tap channel and noise
+# (:20-28), drawn on the host, over 2 and 8 shards; 24c sharded_pss_search
+# over a 20 MHz stream of SL_N subframes, one PSS inside a shard and one 60
+# samples before a shard boundary (tests/test_parallel.py:43-63)
+SCALE_SHARDS = 8
+SCALE_SF = 16
+SCALE_SEED = 91
+SCALE_TAPS = (1.0, 0.45 * np.exp(0.8j), 0.25 * np.exp(-1.9j))
+SCALE_NOISE = 0.02  # per component
+SCALE_PSS = ((5555 * 16, 1), (3 * (BATCH * 30720 // 8) - 60, 2))  # (sample, N_id_2)
+# TBs of 24b's SL_N that the JAX package's TimeShardedDlChain.rx decodes
+# on the same samples (`python tests/rehearse_scale_out.py`, on the CPU)
+SCALE_JAX_TIME_OK = 128
+# the three-process topology (phase 25b): the UDP sample pipe's DL and UL
+# ports, and each process's hard limit
+SCRIPT_PORTS = (43811, 43810)
+SCRIPT_LIMIT_S = 300.0
 
 
 def check(cond, msg):
@@ -901,7 +993,8 @@ def phase_kernels():
                                     (*VIT_SHAPES["pbch4"], (True,)),
                                     *((*VIT_SHAPES[k], (True,)) for k in
                                       ("stack_common", "stack_1c", "stack_crnti", "stack_f1",
-                                       "nb_npbch", "nb_npdcch", "nb_npdsch", "nb_npdsch_max")),
+                                       "nb_npbch", "nb_npdcch", "nb_npdsch", "nb_npdsch_max",
+                                       "sl_psbch", "sl_pscch")),
                                     (1, 44, both), (77, 44, both),
                                     (3, 1, both), (viterbi_cuda.CANDIDATES_PER_BLOCK, 40, (True,)),
                                     (4, 704, both), (2, viterbi_cuda.max_length(True), (True,)),
@@ -1941,7 +2034,7 @@ def phase_blind(profile=False):
           f"{ms_b:.3f} ms; kernel launches {counts_b}; peak device memory {peak_b}", flush=True)
     if profile:
         phase_profile("blind receive, stream A", lambda: blind_receive(a), ms_a)
-    return counts_a, (a, bits, cell, dci)
+    return counts_a, (a, bits, cell, dci, out_a["mib"])
 
 
 # ------------------------------------------------------- spatial multiplexing
@@ -2585,7 +2678,7 @@ def phase_rails(capture, profile=False):
     from srslte_tpu_torch.phy.resampling.resampler import _arb_plan
     from srslte_tpu_torch.phy.ue.intra_measure import IntraMeasure
 
-    a, bits, cell, dci = capture
+    a, bits, cell, dci, _ = capture
     sf_len = cell.ofdm.sf_len
     f = hst_doppler(HST_T0 + np.array([0.0, len(a) / CHANNEL_SRATE]), **HST)
     check(f[0] > 0 > f[1], f"HST: the Doppler's sign flip is not inside the stream ({f})")
@@ -4058,6 +4151,412 @@ def phase_nbiot(smi):
     return read_counts()
 
 
+# ------------------------------------------------------------ the sidelink
+def sl_pssch(sf_idx, prb_start=SL_ALLOC[0], n_prb=SL_ALLOC[1], n_x_id=SL_ID, mcs=SL_MCS):
+    from srslte_tpu_torch.phy.sidelink import Pssch
+
+    return Pssch(SL_PRB, prb_start, n_prb, n_x_id=n_x_id, sf_idx=int(sf_idx), mcs=mcs)
+
+
+def sl_sci():
+    from srslte_tpu_torch.phy.phch.ra import riv_type2
+    from srslte_tpu_torch.phy.sidelink import Sci0
+
+    return Sci0(riv=riv_type2(SL_PRB, *SL_ALLOC), mcs=SL_MCS, group_dst_id=SL_ID)
+
+
+def sl_sigma(snr_db):
+    """AWGN per component for snr_db per RE over the received data power."""
+    return abs(SL_H) * 10 ** (-snr_db / 20) / math.sqrt(2)
+
+
+def sl_channel(grids, sigma, seed):
+    """The flat channel SL_H and AWGN of `sigma` per component (none for
+    None) drawn on the host from `seed`: grids (tensor) -> numpy complex64."""
+    x = grids.cpu().numpy() * SL_H
+    if sigma is not None:
+        rng = np.random.default_rng(seed)
+        x = x + sigma * (rng.standard_normal(x.shape) + 1j * rng.standard_normal(x.shape))
+    return x.astype(np.complex64)
+
+
+def sl_sync_grid(n_sl_id, device="cuda"):
+    """A sync subframe [14, SL_PRB * 12]: PSSS in symbols 1-2, SSSS in
+    11-12 (the centre 62 subcarriers), the PSBCH with SL_MIB and its DMRS
+    in the centre 6 PRB."""
+    from srslte_tpu_torch.phy.sidelink import MibSl, Psbch, psss_sequence, ssss_sequence
+    from srslte_tpu_torch.phy.sidelink.common import PSSS_SYMS, SSSS_SYMS
+
+    grid = Psbch(n_sl_id, SL_PRB).encode(
+        MibSl(**SL_MIB), torch.zeros((14, SL_PRB * 12), dtype=torch.complex64, device=device))
+    mid = SL_PRB * 6
+    for syms, seq in ((PSSS_SYMS, psss_sequence(n_sl_id // 168)),
+                      (SSSS_SYMS, ssss_sequence(n_sl_id).astype(np.complex64))):
+        grid[list(syms), mid - 31 : mid + 31] = torch.as_tensor(seq, device=device)
+    return grid
+
+
+def sl_sync_receive(rx):
+    """The blind receive of a sync subframe: PSSS -> N_id_2, the SSSS
+    coherently through the PSSS's channel -> N_SL_ID, the PSBCH of that id
+    -> (id, CRC ok, MIB-SL)."""
+    from srslte_tpu_torch.phy.sidelink import Psbch, psss_detect, psss_sequence, ssss_detect
+    from srslte_tpu_torch.phy.sidelink.common import PSSS_SYMS, SSSS_SYMS
+
+    mid = SL_PRB * 6
+    p = rx[PSSS_SYMS[0], mid - 31 : mid + 31]
+    id2, _ = psss_detect(p)
+    href = p * torch.conj(torch.as_tensor(psss_sequence(id2), device=rx.device))
+    n_sl_id, _ = ssss_detect(rx[SSSS_SYMS[0], mid - 31 : mid + 31], href)
+    ok, mib = Psbch(n_sl_id, SL_PRB).decode(rx)
+    return n_sl_id, ok, mib
+
+
+def sl_stimulus(name, device="cuda"):
+    """Phase 23's data subframes (`name` "sf": sf_idx = i mod 10, 23b;
+    "batch": all SL_BATCH_SF_IDX, 23c): (sf indices [SL_N], bits [SL_N,
+    tbs] uint8, grids [SL_N, 14, SL_PRB * 12]), the SCI-0 on the PSCCH and
+    its PSSCH in each, encoded on `device`."""
+    from srslte_tpu_torch.phy.sidelink import Pscch
+
+    sfs = np.arange(SL_N) % 10 if name == "sf" else np.full(SL_N, SL_BATCH_SF_IDX)
+    base = Pscch(SL_PRB, *SL_PSCCH).encode(
+        sl_sci(), torch.zeros((14, SL_PRB * 12), dtype=torch.complex64, device=device))
+    rng = np.random.default_rng(SL_SEEDS[name])
+    bits = torch.as_tensor(rng.integers(0, 2, (SL_N, sl_pssch(0).tbs), dtype=np.uint8),
+                           device=device)
+    grids = torch.empty((SL_N, 14, SL_PRB * 12), dtype=torch.complex64, device=device)
+    for s in np.unique(sfs):
+        sel = torch.as_tensor(np.flatnonzero(sfs == s), device=device)
+        grids[sel] = sl_pssch(s).encode(bits[sel], base)
+    return sfs, bits, grids
+
+
+def sl_receive(rx, sf_idx):
+    """One subframe as test_sidelink_control_data_flow receives it: the
+    SCI-0 from the PSCCH, then the PSSCH it describes -> (SCI or None,
+    bits [tbs] or None, CRC ok tensor or False)."""
+    from srslte_tpu_torch.phy.phch.ra import riv_type2_decode
+    from srslte_tpu_torch.phy.sidelink import Pscch
+
+    sci = Pscch(SL_PRB, *SL_PSCCH).decode(rx)
+    if sci is None:
+        return None, None, False
+    rb0, l_rb = riv_type2_decode(SL_PRB, sci.riv)
+    out, ok = sl_pssch(sf_idx, rb0, l_rb, sci.group_dst_id, sci.mcs).decode(rx)
+    return sci, out, ok
+
+
+def sl_gates(ok, label, jax_lost):
+    """Clean: every TB; at SL_SNR_DB: >= 80 % and every lost TB among the
+    JAX package's (`jax_lost`).  Returns the lost TBs."""
+    lost = tuple(np.flatnonzero(~ok).tolist())
+    if jax_lost is None:
+        check(not lost, f"{label}: TBs {lost} lost on the clean channel")
+    else:
+        check(ok.mean() >= 0.8 and set(lost) <= set(jax_lost),
+              f"{label}: {int(ok.sum())}/{len(ok)} TBs, lost {lost}, the JAX package loses "
+              f"{jax_lost}")
+    return lost
+
+
+def phase_sidelink(smi):
+    """Phase 23: sidelink TM1/2 at 50 PRB (see SL_PRB) on the card.  Returns
+    the kernel launch counts of the phase (the `sidelink` path)."""
+    from srslte_tpu_torch.ops import tdec_cuda, viterbi_cuda
+    from srslte_tpu_torch.phy.sidelink import MibSl, Pscch
+
+    check((sl_pssch(0).tbs, sl_pssch(0).cfg.G, sl_pssch(0).cfg.seg.C, sl_pssch(0).cfg.seg.K1)
+          == SL_BUCKET, "unexpected PSSCH bucket")
+    by_shape = collections.Counter()
+    hooks = ((tdec_cuda, "_launch", "siso"), (viterbi_cuda, "_launch", "viterbi"))
+    reset_counts()
+    with wrapped(hooks, launch_recorder(by_shape)):
+        # 23a: the sync subframe of each id
+        sync_ms = []
+        for i, n in enumerate(SL_SYNC_IDS):
+            rx = torch.as_tensor(sl_channel(sl_sync_grid(n), SL_SYNC_NOISE, 500 + i), device="cuda")
+            (got, ok, mib), ms, _ = timed(lambda: sl_sync_receive(rx))
+            sync_ms.append(ms)
+            check(got == n and ok and mib == MibSl(**SL_MIB),
+                  f"23a: N_SL_ID {n} read as {got}, PSBCH CRC {ok}, {mib}")
+        print(f"[23a sidelink sync] N_SL_ID {SL_SYNC_IDS} each found from the PSSS and the "
+              f"coherent SSSS, and the MIB-SL {SL_MIB} read from the PSBCH in the centre 6 PRB of "
+              f"a {SL_PRB} PRB grid (noise {SL_SYNC_NOISE} per component); ms per sync receive "
+              f"{', '.join(f'{v:.2f}' for v in sync_ms)} (the first builds the tables)",
+              flush=True)
+
+        # 23b: per subframe, the UE's receive; then noise alone on the PSCCH
+        sfs, bits, grids = sl_stimulus("sf")
+        host_bits = bits.cpu().numpy()
+        for label, snr in (("clean", None), (f"{SL_SNR_DB:g} dB", SL_SNR_DB)):
+            rx = torch.as_tensor(sl_channel(grids, None if snr is None else sl_sigma(snr),
+                                            SL_SEEDS["sf"] + 1000), device="cuda")
+            calls, data_ms, outs = [], [], []
+            with wrapped(((Pscch, "decode", "sci"),), call_timer(calls)):
+                for i in range(SL_N):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    sci, out, ok = sl_receive(rx[i], sfs[i])
+                    torch.cuda.synchronize()
+                    data_ms.append((time.perf_counter() - t0) * 1e3 - calls[-1][1])
+                    check(sci == sl_sci(), f"23b {label}: subframe {i}: SCI {sci}")
+                    outs.append((out, ok))
+            sci_ms = [ms for _, ms in calls]
+            ok = torch.stack([o for _, o in outs]).cpu().numpy()
+            got = torch.stack([b for b, _ in outs]).cpu().numpy()
+            ok &= (got == host_bits).all(-1)
+            lost = sl_gates(ok, f"23b {label}", None if snr is None else SL_JAX["sf"])
+            print(f"[23b sidelink per subframe, {label}] {SL_N} subframes (sf_idx i mod 10): "
+                  f"every SCI-0 right, {int(ok.sum())}/{SL_N} TBs of {SL_BUCKET[0]} bits equal to "
+                  f"the bits sent, lost {lost} (the JAX package's {SL_JAX['sf']} at "
+                  f"{SL_SNR_DB:g} dB); ms per subframe: the PSCCH decode {ms_stats(sci_ms)}, "
+                  f"the PSSCH decode {ms_stats(data_ms)}; {smi}", flush=True)
+        rng = np.random.default_rng(SL_SEEDS["sf"] + 2000)
+        noise = torch.as_tensor((rng.standard_normal((SL_NOISE_ONLY, 14, SL_PRB * 12, 2)) / math.sqrt(2))
+                                .astype(np.float32), device="cuda")
+        false = [Pscch(SL_PRB, *SL_PSCCH).decode(torch.view_as_complex(g)) for g in noise]
+        check(all(f is None for f in false), f"23b: an SCI from noise alone: {false}")
+        print(f"[23b sidelink] {SL_NOISE_ONLY} grids of noise alone through Pscch.decode: no SCI",
+              flush=True)
+
+        # 23c: one batched dispatch of SL_N subframes of one sf_idx
+        _, bits, grids = sl_stimulus("batch")
+        host_bits = bits.cpu().numpy()
+        p = sl_pssch(SL_BATCH_SF_IDX)
+        for label, snr in (("clean", None), (f"{SL_SNR_DB:g} dB", SL_SNR_DB)):
+            rx = torch.as_tensor(sl_channel(grids, None if snr is None else sl_sigma(snr),
+                                            SL_SEEDS["batch"] + 1000), device="cuda")
+            ms, (out, ok) = median_ms(lambda: p.decode(rx))
+            ok = ok.cpu().numpy() & (out.cpu().numpy() == host_bits).all(-1)
+            lost = sl_gates(ok, f"23c {label}", None if snr is None else SL_JAX["batch"])
+            print(f"[23c sidelink batched, {label}] {SL_N} subframes (sf_idx {SL_BATCH_SF_IDX}) "
+                  f"through one Pssch.decode: {int(ok.sum())}/{SL_N} TBs, lost {lost} (the JAX "
+                  f"package's {SL_JAX['batch']} at {SL_SNR_DB:g} dB); {ms:.3f} ms per dispatch "
+                  f"(median of {N_TIMED}) = {SL_N / ms * 1e3:.1f} subframes/s = "
+                  f"{SL_N / ms:.2f} x real time; {smi}", flush=True)
+    counts = read_counts()
+    per = sorted(by_shape.items(), key=lambda kv: -kv[1])
+    print(f"[23 sidelink] kernel launches {counts}; by shape: "
+          + "; ".join(f"{k} {shp}: {n}" for (k, shp), n in per), flush=True)
+    return counts
+
+
+# ------------------------------------------------------------ scale-out
+def scale_fading(x, seed):
+    """tests/test_time_shard.py:_fading on the host: SCALE_TAPS over the
+    samples of each subframe [n, sf_len], AWGN of SCALE_NOISE per component
+    from `seed`."""
+    rng = np.random.default_rng(seed)
+    y = np.zeros_like(x)
+    for d, t in enumerate(SCALE_TAPS):
+        y[..., d:] += t * x[..., : x.shape[-1] - d]
+    y = y + SCALE_NOISE * (rng.standard_normal(y.shape) + 1j * rng.standard_normal(y.shape))
+    return y.astype(np.complex64)
+
+
+def scale_time_stimulus(device="cuda"):
+    """24b's chain and stimulus: (chain, bits [SL_N, tbs] uint8 on the
+    device, faded samples [SL_N, sf_len] numpy)."""
+    from srslte_tpu_torch.parallel.time_shard import TimeShardedDlChain
+    from srslte_tpu_torch.phy.common.params import Cell
+    from srslte_tpu_torch.phy.phch.ra import DlGrant
+
+    chain = TimeShardedDlChain(Cell(n_prb=100, id=3, nof_ports=1), DlGrant.full(100, 27))
+    rng = np.random.default_rng(SCALE_SEED + 1)
+    bits = torch.as_tensor(rng.integers(0, 2, (SL_N, chain.tbs), dtype=np.uint8), device=device)
+    return chain, bits, scale_fading(chain.encode(bits).cpu().numpy(), SCALE_SEED + 2)
+
+
+def phase_scale_out(smi):
+    """Phase 24: the scale-out modules on SCALE_SHARDS virtual shards of the
+    one card (see SCALE_SHARDS).  Returns the kernel launch counts of 24a's
+    sharded step and of 24b's 8-shard receive."""
+    from srslte_tpu_torch.ops import tdec_cuda
+    from srslte_tpu_torch.parallel import ShardedDlPipeline, make_mesh, sharded_pss_search
+    from srslte_tpu_torch.phy.common.params import Cell
+    from srslte_tpu_torch.phy.phch.ra import DlGrant
+    from srslte_tpu_torch.phy.sync.pss import pss_find_peak, pss_time
+
+    cuda0 = torch.device("cuda", 0)
+    hooks = ((tdec_cuda, "_launch", "siso"),)
+    counts = {}
+
+    # 24a: the carrier axis
+    mesh = make_mesh({"carrier": SCALE_SHARDS}, [cuda0] * SCALE_SHARDS)
+    pipe = ShardedDlPipeline(Cell(n_prb=100, id=1, nof_ports=1), DlGrant.full(100, 27))
+    check(pipe.tbs == DL_BUCKETS[27][0], "24a: unexpected TBS")
+    rng = np.random.default_rng(SCALE_SEED)
+    bits = torch.as_tensor(rng.integers(0, 2, (SCALE_SHARDS, SCALE_SF, pipe.tbs), dtype=np.uint8),
+                           device=cuda0)
+    step = pipe.jit_e2e(mesh)
+    by_shape = collections.Counter()
+    reset_counts()
+    with wrapped(hooks, launch_recorder(by_shape)):
+        out_s, ok_s, bler_s = step(bits)
+        torch.cuda.synchronize()
+    counts["scale_carrier"] = read_counts()
+    out_1, ok_1, bler_1 = pipe.e2e(bits)
+    check(bool(ok_s.all()) and float(bler_s) == 0.0 and torch.equal(out_s, bits),
+          f"24a: {int(ok_s.sum())}/{ok_s.numel()} TBs, BLER {float(bler_s)}")
+    check(torch.equal(out_s, out_1) and torch.equal(ok_s, ok_1) and float(bler_1) == 0.0,
+          "24a: the sharded step differs from the unsharded e2e")
+    ms_s, _ = median_ms(lambda: step(bits), 5)
+    ms_1, _ = median_ms(lambda: pipe.e2e(bits), 5)
+    n = SCALE_SHARDS * SCALE_SF
+    print(f"[24a scale-out, carriers] {SCALE_SHARDS} carriers x {SCALE_SF} subframes over "
+          f"{SCALE_SHARDS} virtual shards of the one card: every TB right, BLER 0, bits and flags "
+          f"equal to the unsharded e2e; ms per step (encode + decode, median of 5): sharded "
+          f"{ms_s:.3f}, unsharded {ms_1:.3f} ({n} subframes); SISO launches of the sharded step "
+          f"by shape: " + "; ".join(f"{shp}: {k}" for (_, shp), k in by_shape.items())
+          + f"; {smi}", flush=True)
+    del out_s, out_1, bits
+
+    # 24b: the time axis with the chest halo
+    chain, bits, x = scale_time_stimulus()
+    rx = torch.as_tensor(x, device=cuda0)
+    ms_1, (b_ref, ok_ref) = median_ms(lambda: chain.rx(rx), 5)
+    n_ok = int((ok_ref & (b_ref == bits).all(-1)).sum())
+    check(n_ok >= SCALE_JAX_TIME_OK, f"24b: {n_ok} TBs, the JAX package's rx {SCALE_JAX_TIME_OK}")
+    sf_mod = torch.as_tensor(np.arange(SL_N) % 10, device=cuda0)
+    h_full = chain._ls_freq(chain._ofdm.rx_sf(rx), sf_mod)
+    ce_ref = chain._smooth(h_full, h_full[0], True)
+    times = {}
+    for n_dev in (2, SCALE_SHARDS):
+        m = make_mesh({"t": n_dev}, [cuda0] * n_dev)
+        by_shape = collections.Counter()
+        if n_dev == SCALE_SHARDS:
+            reset_counts()
+        with wrapped(hooks, launch_recorder(by_shape)):
+            b_sh, ok_sh = chain.rx_sharded(rx, m)
+            torch.cuda.synchronize()
+        if n_dev == SCALE_SHARDS:
+            counts["scale_time"] = read_counts()
+        check(torch.equal(b_sh, b_ref) and torch.equal(ok_sh, ok_ref),
+              f"24b: {n_dev} shards: bits or CRC flags differ from rx")
+        ce = chain.ce_sharded(rx, m)
+        starts = range(SL_N // n_dev, SL_N, SL_N // n_dev)
+        check(torch.equal(ce, ce_ref) and all(not torch.equal(ce[s], h_full[s]) for s in starts),
+              f"24b: {n_dev} shards: the CE differs from rx's, or a block start self-primes")
+        times[n_dev], _ = median_ms(lambda: chain.rx_sharded(rx, m), 5)
+        shapes = "; ".join(f"{shp}: {k}" for (_, shp), k in by_shape.items())
+        print(f"[24b scale-out, time, {n_dev} shards] bits, CRC flags and the CE equal to the "
+              f"unsharded rx's; every block start's CE differs from its own LS (the halo carries "
+              f"state); SISO launches by shape: {shapes}", flush=True)
+    print(f"[24b scale-out, time] {SL_N} subframes through the 3-tap channel (noise "
+          f"{SCALE_NOISE}): {n_ok}/{SL_N} TBs (the JAX package's rx {SCALE_JAX_TIME_OK}); ms per "
+          f"receive (median of 5): unsharded {ms_1:.3f}, 2 shards {times[2]:.3f}, "
+          f"{SCALE_SHARDS} shards {times[SCALE_SHARDS]:.3f}; {smi}", flush=True)
+    del rx, b_ref, b_sh, h_full, ce, ce_ref
+
+    # 24c: the PSS search over a 20 MHz stream
+    fft = 2048
+    n = SL_N * 30720
+    m = make_mesh({"t": SCALE_SHARDS}, [cuda0] * SCALE_SHARDS)
+    rng = np.random.default_rng(SCALE_SEED + 3)
+    for delay, nid2 in SCALE_PSS:
+        x = 0.05 * (rng.standard_normal(n) + 1j * rng.standard_normal(n))
+        x[delay : delay + fft] += 3.0 * pss_time(nid2, fft)
+        x = torch.as_tensor(x.astype(np.complex64), device=cuda0)
+        ms_s, (g_n, g_off, g_m) = median_ms(lambda: sharded_pss_search(x, fft, m), 5)
+        ms_1, (u_n, u_off, _) = median_ms(lambda: pss_find_peak(x, fft), 5)
+        g_n, g_off, u_n, u_off = int(g_n), int(g_off), int(u_n), int(u_off)
+        check(g_n == u_n == nid2 and abs(g_off - delay) <= 1 and abs(g_off - u_off) <= 1,
+              f"24c: PSS {nid2} at {delay}: sharded ({g_n}, {g_off}), unsharded ({u_n}, {u_off})")
+        where = ("60 samples before a shard boundary" if (delay + 60) % (n // SCALE_SHARDS) == 0
+                 else "inside a shard")
+        print(f"[24c scale-out, PSS search] {n} samples (fft {fft}) over {SCALE_SHARDS} shards, "
+              f"N_id_2 {nid2} at sample {delay} ({where}): found ({g_n}, {g_off}, metric "
+              f"{float(g_m):.3f}), unsharded ({u_n}, {u_off}); ms per search (median of 5): "
+              f"sharded {ms_s:.3f}, unsharded {ms_1:.3f}; {smi}", flush=True)
+    return counts
+
+
+# ------------------------------------------------------------ the scripts
+def spawn_reader(args):
+    """A process of `python -u -m args...` from the repo root, its output
+    lines in a queue filled by a thread."""
+    import queue
+    import threading
+
+    p = subprocess.Popen([sys.executable, "-u", "-m", *map(str, args)],
+                         cwd=os.path.dirname(os.path.abspath(__file__)), stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True)
+    q = queue.Queue()
+    threading.Thread(target=lambda: [q.put(line) for line in p.stdout], daemon=True).start()
+    return p, q
+
+
+def read_until(q, prefix, deadline, log):
+    """The first line of q that starts with prefix, before `deadline`
+    (time.time()); every line read goes to log.  The limit is a failure."""
+    import queue
+
+    while True:
+        left = deadline - time.time()
+        check(left > 0, f"25b: no line starting {prefix!r} within the limit; output {log}")
+        try:
+            line = q.get(timeout=left).rstrip()
+        except queue.Empty:
+            continue
+        log.append(line)
+        if line.startswith(prefix):
+            return line
+
+
+def phase_scripts(capture, smi):
+    """Phase 25: the JAX package's remaining entry points, ported: 25a the
+    cell scanner on phase 12's capture; 25b run_epc, run_enb and run_ue as
+    three processes on the card."""
+    from srslte_tpu_torch.examples.cell_search import scan
+
+    a, _, cell, _, mib = capture
+    scan(a[: cell.ofdm.sf_len * 20], BLIND_PRB)  # the tables built and uploaded
+    got, ms, peak = timed(lambda: scan(a, BLIND_PRB))
+    check(got is not None and got["cell_id"] == cell.id and got.get("mib") == mib
+          and got["nof_ports"] == cell.nof_ports, f"25a: scan found {got}, phase 12 read {mib}")
+    print(f"[25a cell_search.scan] phase 12's capture ({len(a)} samples, {BLIND_PRB} PRB): PCI "
+          f"{got['cell_id']}, CFO {got['cfo_sc']:.4f} subcarriers, votes {got['votes']}, "
+          f"{got['mib']} on {got['nof_ports']} port, the MIB phase 12's receive read; {ms:.1f} "
+          f"ms, peak {peak}; {smi}", flush=True)
+
+    procs, logs, starts = [], {"epc": [], "enb": [], "ue": []}, []
+
+    def spawn(module, *args):
+        starts.append(time.time())
+        procs.append(spawn_reader((f"srslte_tpu_torch.examples.{module}", *args)))
+        return procs[-1][1]
+
+    def deadline():
+        """Every process started so far is held to SCRIPT_LIMIT_S."""
+        return min(starts) + SCRIPT_LIMIT_S
+
+    with tempfile.TemporaryDirectory() as tmp:
+        port_file = os.path.join(tmp, "s1_port")
+        try:
+            dl, ul = SCRIPT_PORTS
+            read_until(spawn("run_epc", port_file), "EPC ready", deadline(), logs["epc"])
+            s1_port = int(open(port_file).read())
+            read_until(spawn("run_enb", s1_port, dl, ul), "ENB ready", deadline(), logs["enb"])
+            ue = spawn("run_ue", dl, ul)
+            read_until(ue, "UE ready", deadline(), logs["ue"])
+            attached = read_until(ue, "ATTACHED", deadline(), logs["ue"])
+            t_att = time.time()
+            echo = read_until(ue, "DL_DATA", deadline(), logs["ue"])
+            t_end = time.time()
+            check(echo == "DL_DATA echo:ping-3proc", f"25b: the UE printed {echo!r}")
+        finally:
+            for p, _ in procs:
+                p.kill()
+            for p, _ in procs:
+                p.wait(timeout=30)
+    t0, t_ue = starts[0], starts[2]
+    print(f"[25b run_epc + run_enb + run_ue] three processes (the eNB and the UE on the card, "
+          f"15 PRB, the UDP sample pipe, S1AP over framed TCP): UE {attached!r}, then "
+          f"{echo!r}; wall from the UE's start: attach {t_att - t_ue:.1f} s, echo "
+          f"{t_end - t_ue:.1f} s; from the EPC's start {t_end - t0:.1f} s; {smi}", flush=True)
+
+
 def stack_profile(prof, wall_ms, label="A bulk"):
     """The device's busy share and top kernels over a bulk window."""
     rows, busy_us = device_rows(prof)
@@ -4185,10 +4684,16 @@ def main():
     lap("21 NR stack")
     counts_nbiot = phase_nbiot(smi)
     lap("22 NB-IoT")
+    counts_sl = phase_sidelink(smi)
+    lap("23 sidelink")
+    counts_scale = phase_scale_out(smi)
+    lap("24 scale-out")
+    phase_scripts(capture, smi)
+    lap("25 entry points")
     counts = {"dl_f32": counts_dl, "dl_bf16": counts_dl16, **counts_ul, "dl_harq": counts_harq,
               "blind": counts_blind, **counts_sm2, **counts_sm4, **counts_rest, **counts_channel,
               "rails": counts_rails, "stack": counts_stack, "s1": counts_s1,
-              "nbiot": counts_nbiot}
+              "nbiot": counts_nbiot, "sidelink": counts_sl, **counts_scale}
     print(f"[wall] seconds per phase: {', '.join(f'{k} {v:.1f}' for k, v in walls.items())}; "
           f"total {time.perf_counter() - t_all:.1f}", flush=True)
     line = []

@@ -4,7 +4,10 @@ The system has no trained weights.  What takes their place is the static
 tables of a bucket, which each package builds itself (the tests hold them
 equal), the resumable turbo-decoder state and the HARQ soft buffers.  The
 functions here take the JAX package's objects as numpy arrays (the caller
-does the ``np.asarray``) and return this package's.
+does the ``np.asarray``) and return this package's.  The sidelink
+(`phy/sidelink/`) and the scale-out modules (`parallel/`) carry no state
+beyond host tables, which each package builds (`tests/test_torch_tables.py`
+holds them equal), so nothing here serves them.
 """
 
 from __future__ import annotations

@@ -120,7 +120,13 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
                 "pdcp/entity_nr.py", "nr_worker.py", "nr_stack.py", "vnf.py",
                 "phy/nbiot/__init__.py", "phy/nbiot/nrs.py", "phy/nbiot/sync.py",
                 "phy/nbiot/npdsch.py", "phy/nbiot/npdcch.py", "phy/nbiot/npbch.py",
-                "phy/nbiot/ue.py", "examples/npdsch_enodeb.py", "examples/npdsch_ue.py"):
+                "phy/nbiot/ue.py", "examples/npdsch_enodeb.py", "examples/npdsch_ue.py",
+                # the sidelink, the scale-out modules and the rest of the scripts
+                "phy/sidelink/__init__.py", "phy/sidelink/common.py", "phy/sidelink/sync.py",
+                "phy/sidelink/ra_sl.py", "phy/sidelink/channels.py", "parallel/__init__.py",
+                "parallel/mesh.py", "parallel/halo.py", "parallel/pipeline.py",
+                "parallel/time_shard.py", "examples/cell_search.py", "examples/zmq_remote_rx.py",
+                "examples/run_epc.py", "examples/run_enb.py", "examples/run_ue.py"):
         assert f"srslte_tpu_torch/{mod}" in names, mod
     hits = [f"{f.relative_to(ROOT)}:{i + 1}: {line}"
             for f in files for i, line in enumerate(f.read_text().splitlines())
@@ -821,3 +827,42 @@ def test_nbiot_table_copies():
             t_npbch.NPBCH_SYMBOLS) == (j_npbch.MIB_NB_LEN, j_npbch.PAYLOAD, j_npbch.E_TOTAL,
                                        j_npbch.E_BLOCK, j_npbch.NPBCH_SYMBOLS)
     assert {n for n in dir(j_nb) if not n.startswith("_")} <= set(dir(t_nb))
+
+
+def test_sidelink_table_copies():
+    """The port's copies of the sidelink tables: the symbol roles, PSSS and
+    SSSS (every id), the PSBCH, PSCCH and PSSCH DMRS, the group-hopping
+    pattern (integer Gold bits shifted in int64), the TRP index sets and
+    bitmaps, and the SCI-0 size at every LTE bandwidth."""
+    import srslte_tpu.phy.sidelink as j_sl
+    import srslte_tpu.phy.sidelink.common as j_slc
+    import srslte_tpu.phy.sidelink.ra_sl as j_slra
+    import srslte_tpu_torch.phy.sidelink as t_sl
+    import srslte_tpu_torch.phy.sidelink.common as t_slc
+    import srslte_tpu_torch.phy.sidelink.ra_sl as t_slra
+
+    for name in ("NRE", "PSBCH_DATA_SYMS", "PSBCH_E_SYMS", "PSSS_SYMS", "SSSS_SYMS",
+                 "SL_DMRS_SYMS", "GUARD_SYM", "PSCCH_DATA_SYMS", "PSSCH_DATA_SYMS", "SL_E_SYMS"):
+        assert getattr(t_slc, name) == getattr(j_slc, name), name
+    for n in range(2):
+        eq(t_sl.psss_sequence(n), j_sl.psss_sequence(n))
+    eq(np.stack([t_sl.ssss_sequence(n) for n in range(336)]),
+       np.stack([j_sl.ssss_sequence(n) for n in range(336)]))
+    for n in (0, 1, 15, 16, 167, 168, 335):
+        eq(t_slc.psbch_dmrs(n), j_slc.psbch_dmrs(n))
+    for cs in (0, 3, 6, 9):
+        for n_prb in (1, 2):
+            eq(t_slc.pscch_dmrs(cs, n_prb), j_slc.pscch_dmrs(cs, n_prb))
+    for n_x_id in (0, 29, 30, 42, 168, 171, 255, 509):
+        eq(t_slc._f_gh_pattern(n_x_id), j_slc._f_gh_pattern(n_x_id))
+        assert t_slc._f_gh_pattern(n_x_id).dtype == np.int64
+        for n_prb in (1, 4, 8, 48):
+            eq(t_slc.pssch_dmrs(n_x_id, n_prb), j_slc.pssch_dmrs(n_x_id, n_prb))
+    for n in (6, 7, 8):
+        for k in range(n + 1):
+            assert t_slra.trp_indices_for_k(n, k) == j_slra.trp_indices_for_k(n, k)
+        for i in range(1 << n):
+            assert t_slra.trp_bitmap(i, n) == j_slra.trp_bitmap(i, n)
+    for n_prb in PRBS:
+        assert t_sl.sci0_size(n_prb) == j_sl.sci0_size(n_prb)
+    assert {n for n in dir(j_sl) if not n.startswith("_")} <= set(dir(t_sl))
