@@ -1309,6 +1309,14 @@ def wrapped(hooks, wrap):
             setattr(owner, attr, fn)
 
 
+def eager(entries):
+    """While open, each entry point `owner.attr` of entries ((owner, attr),
+    ...) runs as its `__wrapped__`: eagerly, so that the hooks of a stage
+    split see the functions a CUDA graph would replay."""
+    return wrapped(tuple((owner, attr, attr) for owner, attr in entries),
+                   lambda fn, name: fn.__wrapped__)
+
+
 def stage_marks(stages, hooks=None):
     """While open, the stages that EnbUl.decode_pusch calls (or the functions
     of `hooks`) synchronise and append (stage name, host time) to `stages`
@@ -1833,11 +1841,11 @@ def blind_capture(cell, device=None):
     return samples, bits, (time.perf_counter() - t0) * 1e3, nbytes
 
 
-def blind_impaired(a, fft_size):
+def blind_impaired(a, fft_size, seed=BLIND_NOISE_SEED):
     """Stream B: BLIND_DELAY samples of silence, a CFO of BLIND_CFO
     subcarriers and AWGN BLIND_SNR_DB below a's mean power per sample, drawn
-    on the host from BLIND_NOISE_SEED."""
-    rng = np.random.default_rng(BLIND_NOISE_SEED)
+    on the host from `seed`."""
+    rng = np.random.default_rng(seed)
     x = np.concatenate([np.zeros(BLIND_DELAY, np.complex64), a])
     x = x * np.exp(2j * np.pi * BLIND_CFO * np.arange(len(x)) / fft_size)
     sigma = np.sqrt(np.mean(np.abs(a) ** 2) / 10 ** (BLIND_SNR_DB / 10) / 2)
@@ -2279,13 +2287,14 @@ def phase_sm(label, chain, snr_db, seed, timed_path=True, profile=False):
           f"{[round(1 - t / n, 4) for t in tb]}", flush=True)
     stages = []
     hooks = ((type(chain.pdsch), "soft_bits2", "mmse_demod"),)
-    with stage_marks(stages, hooks):
+    with eager(((type(chain.pdsch), "decode2"),)), stage_marks(stages, hooks):
         chain.receive(rx, snr_db, gen, stages=stages)
     stages.sort(key=lambda st: st[1])
     split = ", ".join(f"{nm} {(t - stages[i][1]) * 1e3:.2f}"
                       for i, (nm, t) in enumerate(stages[1:]))
     print(f"[{label}, {snr_db} dB] one more dispatch with a synchronise after each stage, ms "
-          f"(pdsch_decode2 after mmse_demod is the two codewords' DL-SCH decode): {split}",
+          f"(decode2 eager, its __wrapped__; pdsch_decode2 after mmse_demod is the two "
+          f"codewords' DL-SCH decode): {split}",
           flush=True)
     _, n_sync, per = count_syncs(lambda: chain.receive(rx, snr_db, gen), sm_hooks())
     print(f"[{label}, {snr_db} dB] host synchronisations (CUDA sync debug mode): {n_sync} in one "
@@ -2953,22 +2962,21 @@ def stack_timer(times, tti_end):
     return call
 
 
-def launch_recorder(by_shape):
-    """wrap for `wrapped` over the kernels' `_launch` functions: every
-    launch adds one to by_shape[(kernel, shape)]."""
-    def wrap(fn, name):
-        def call(*args):
-            if name == "siso":
-                x, L, T = args[1], args[4], args[5]
-                key = ("siso_windowed_bf16" if x.dtype == BF16 else "siso_windowed",
-                       f"B={x.shape[0]} K={x.shape[1]} L={L} T={T}")
-            else:
-                key = ("viterbi_decode", f"B={args[1].shape[0]} len={args[2]} "
-                                         f"tail_biting={bool(args[3])}")
-            by_shape[key] += 1
-            return fn(*args)
-        return call
-    return wrap
+@contextlib.contextmanager
+def launch_shapes(by_shape, kernels=None):
+    """While open, every kernel launch (the launches a replayed CUDA graph
+    captured included) adds one to by_shape[(kernel, shape)]; `kernels`
+    keeps only those kernels."""
+    from srslte_tpu_torch.ops import tdec_cuda, viterbi_cuda
+
+    owners = (tdec_cuda.siso_windowed, viterbi_cuda.viterbi_decode)
+    before = [collections.Counter(o.shapes) for o in owners]
+    try:
+        yield by_shape
+    finally:
+        for o, b in zip(owners, before):
+            by_shape.update({k: n for k, n in (o.shapes - b).items()
+                             if kernels is None or k[0] in kernels})
 
 
 def table_cache():
@@ -2988,11 +2996,10 @@ def phase_stack(smi, profile=False):
     at which each state is first reached equalling the JAX package's
     (STACK_JAX).  Scenario A is the stack path's counted run.  Returns its
     kernel launch counts."""
-    from srslte_tpu_torch.ops import tdec_cuda, viterbi_cuda
+    from srslte_tpu_torch.utils import jit
 
-    hooks = ((tdec_cuda, "_launch", "siso"), (viterbi_cuda, "_launch", "viterbi"))
     pkg = stack_port()
-    counts_a = None
+    counts_a, n_graphs = None, {}
     for name in "ABCD":
         times, tti_end, by_shape = {}, [], collections.Counter()
         torch.cuda.synchronize()
@@ -3007,7 +3014,7 @@ def phase_stack(smi, profile=False):
                                                           ProfilerActivity.CUDA])
         bulk = {}
         t0 = time.perf_counter()
-        with wrapped(hooks, launch_recorder(by_shape)):
+        with launch_shapes(by_shape):
             if name == "C":  # untimed: its host synchronisations are counted
                 (first, ttis, gates, counts), n_sync, _ = count_syncs(
                     lambda: stack_scenario(name, pkg), ())
@@ -3029,6 +3036,9 @@ def phase_stack(smi, profile=False):
             check(short > 0, "no code block of K < 256 went through the SISO kernel")
         peak = torch.cuda.max_memory_allocated()
         n_tab, mb_tab, n_seq, mb_seq = table_cache()
+        n_graphs[name] = jit.graphs()
+        if name == "C":
+            keys_c = set(jit.keys())
         failed = [g for g, ok in gates.items() if not ok]
         check(not failed, f"full stack, scenario {name}: gates failed: {failed}")
         want = STACK_JAX[name]
@@ -3042,7 +3052,8 @@ def phase_stack(smi, profile=False):
         print(f"[18 full stack, {name}] peak device memory {peak / 1e6:.1f} MB "
               f"({(peak - before) / 1e6:.1f} MB above what was allocated before); table cache "
               f"{n_tab} shared entries, {mb_tab:.2f} MB, {n_seq} per-UE sequences, "
-              f"{mb_seq:.2f} MB; {smi}", flush=True)
+              f"{mb_seq:.2f} MB; CUDA graphs in the cache {n_graphs[name]['count']} "
+              f"({n_graphs[name]['mb']:.1f} MB); {smi}", flush=True)
         for label, ms in times.items():
             print(f"[18 full stack, {name}] {label}: {len(ms)} calls, ms median "
                   f"{float(np.median(ms)):.3f}, p99 {float(np.percentile(ms, 99)):.3f}, "
@@ -3069,6 +3080,22 @@ def phase_stack(smi, profile=False):
                   flush=True)
             if prof is not None:
                 stack_profile(prof, (bulk["t1"] - bulk["t0"]) * 1e3)
+    # D schedules a grant that A-C never do (so its first run captures that
+    # bucket once); a second run of D must capture nothing
+    new = [k for k in jit.keys() if k not in keys_c]
+    first, ttis, gates, _ = stack_scenario("D", pkg)
+    failed = [g for g, ok in gates.items() if not ok]
+    check(not failed and first == STACK_JAX["D"], f"full stack, D again: gates {failed}, "
+                                                   f"first TTI per state {first}")
+    n_again = jit.graphs()["count"]
+    print(f"[18 full stack] CUDA graphs in the cache after C {n_graphs['C']['count']}, after D "
+          f"{n_graphs['D']['count']} (the buckets D alone schedules: "
+          f"{[(k[0].removeprefix('srslte_tpu_torch.'), str(k[1])[:300]) for k in new]}), after "
+          f"D again ({ttis} TTIs, every gate and state TTI met) {n_again}", flush=True)
+    check(n_again == n_graphs["D"]["count"],
+          f"full stack: {n_graphs['C']['count']} CUDA graphs after scenario C, "
+          f"{n_graphs['D']['count']} after D, {n_again} after D again: the graphs grow with the "
+          f"TTIs run")
     return counts_a
 
 
@@ -3241,9 +3268,6 @@ def phase_s1(smi, profile=False):
     (S1_JAX), and on the release on both ends; a second, untimed run counts
     the host synchronisations.  Returns the first run's kernel launch
     counts."""
-    from srslte_tpu_torch.ops import tdec_cuda, viterbi_cuda
-
-    hooks = ((tdec_cuda, "_launch", "siso"), (viterbi_cuda, "_launch", "viterbi"))
     pkg = s1_port()
     times, tti_end, by_shape, bulk = {}, [], collections.Counter(), {}
     prof = None
@@ -3267,7 +3291,7 @@ def phase_s1(smi, profile=False):
     before = torch.cuda.memory_allocated()
     reset_counts()
     t0 = time.perf_counter()
-    with wrapped(hooks, launch_recorder(by_shape)):
+    with launch_shapes(by_shape):
         first, ttis, gates, counts, log = s1_scenario(pkg, stack_timer(times, tti_end),
                                                       (bulk_start, bulk_stop))
     torch.cuda.synchronize()
@@ -3560,11 +3584,12 @@ def phase_nr(smi, profile=False):
     with stage_marks(stages, hooks):
         torch.cuda.synchronize()
         stages[0] = ("start", time.perf_counter())
-        pdsch.decode(rx)
+        type(pdsch).decode.__wrapped__(pdsch, rx)
     split = ", ".join(f"{nm} {(t - stages[i][1]) * 1e3:.2f}"
                       for i, (nm, t) in enumerate(stages[1:]))
-    print(f"[20a NR DL] one more dispatch with a synchronise after each stage, ms (crc: code "
-          f"blocks, then transport blocks): {split}", flush=True)
+    print(f"[20a NR DL] one more dispatch with a synchronise after each stage, ms (decode "
+          f"eager, its __wrapped__; crc: code blocks, then transport blocks): {split}",
+          flush=True)
     # launches of one LDPC decode and one list decode at the path's shapes
     cfg = pdsch.cfg
     w = dlsch_nr.nr_dlsch_combine(pdsch.demod_llr(rx)[0], cfg)
@@ -4263,15 +4288,13 @@ def sl_gates(ok, label, jax_lost):
 def phase_sidelink(smi):
     """Phase 23: sidelink TM1/2 at 50 PRB (see SL_PRB) on the card.  Returns
     the kernel launch counts of the phase (the `sidelink` path)."""
-    from srslte_tpu_torch.ops import tdec_cuda, viterbi_cuda
     from srslte_tpu_torch.phy.sidelink import MibSl, Pscch
 
     check((sl_pssch(0).tbs, sl_pssch(0).cfg.G, sl_pssch(0).cfg.seg.C, sl_pssch(0).cfg.seg.K1)
           == SL_BUCKET, "unexpected PSSCH bucket")
     by_shape = collections.Counter()
-    hooks = ((tdec_cuda, "_launch", "siso"), (viterbi_cuda, "_launch", "viterbi"))
     reset_counts()
-    with wrapped(hooks, launch_recorder(by_shape)):
+    with launch_shapes(by_shape):
         # 23a: the sync subframe of each id
         sync_ms = []
         for i, n in enumerate(SL_SYNC_IDS):
@@ -4372,14 +4395,13 @@ def phase_scale_out(smi):
     """Phase 24: the scale-out modules on SCALE_SHARDS virtual shards of the
     one card (see SCALE_SHARDS).  Returns the kernel launch counts of 24a's
     sharded step and of 24b's 8-shard receive."""
-    from srslte_tpu_torch.ops import tdec_cuda
     from srslte_tpu_torch.parallel import ShardedDlPipeline, make_mesh, sharded_pss_search
     from srslte_tpu_torch.phy.common.params import Cell
     from srslte_tpu_torch.phy.phch.ra import DlGrant
     from srslte_tpu_torch.phy.sync.pss import pss_find_peak, pss_time
 
     cuda0 = torch.device("cuda", 0)
-    hooks = ((tdec_cuda, "_launch", "siso"),)
+    siso_only = ("siso_windowed", "siso_windowed_bf16")
     counts = {}
 
     # 24a: the carrier axis
@@ -4392,7 +4414,7 @@ def phase_scale_out(smi):
     step = pipe.jit_e2e(mesh)
     by_shape = collections.Counter()
     reset_counts()
-    with wrapped(hooks, launch_recorder(by_shape)):
+    with launch_shapes(by_shape, siso_only):
         out_s, ok_s, bler_s = step(bits)
         torch.cuda.synchronize()
     counts["scale_carrier"] = read_counts()
@@ -4427,7 +4449,7 @@ def phase_scale_out(smi):
         by_shape = collections.Counter()
         if n_dev == SCALE_SHARDS:
             reset_counts()
-        with wrapped(hooks, launch_recorder(by_shape)):
+        with launch_shapes(by_shape, siso_only):
             b_sh, ok_sh = chain.rx_sharded(rx, m)
             torch.cuda.synchronize()
         if n_dev == SCALE_SHARDS:
@@ -4557,6 +4579,228 @@ def phase_scripts(capture, smi):
           f"{t_end - t_ue:.1f} s; from the EPC's start {t_end - t0:.1f} s; {smi}", flush=True)
 
 
+# ------------------------------------------------- one dispatch per call
+GRAPH_FLOAT_TOL = 1e-5  # a float output's largest difference from the eager run, of its scale
+
+
+def tree_clone(x):
+    from torch.utils._pytree import tree_map
+
+    return tree_map(lambda v: v.clone() if isinstance(v, torch.Tensor) else v, x)
+
+
+def first_calls(run):
+    """{entry point: (wrapped function, args, kwargs)} of the first call of
+    each entry point that run() makes outside a graph, its tensors cloned."""
+    from srslte_tpu_torch.utils import jit
+
+    with jit.recording_calls() as calls:
+        run()
+    first = {}
+    for fn, args, kwargs in calls:
+        name = fn.jit_site.name.removeprefix("srslte_tpu_torch.")
+        if name not in first:
+            first[name] = (fn, tree_clone(args), tree_clone(kwargs))
+    torch.cuda.synchronize()
+    return first
+
+
+def graph_diff(g, e):
+    """(integer and bool outputs equal, the largest float difference, the
+    largest over the output's scale) of a graphed call's outputs g against
+    the eager call's e."""
+    from torch.utils._pytree import tree_leaves
+
+    lg, le = tree_leaves(g), tree_leaves(e)
+    check(len(lg) == len(le), "graphed and eager outputs differ in structure")
+    hard, diff, rel = True, 0.0, 0.0
+    for a, b in zip(lg, le):
+        if not isinstance(a, torch.Tensor):
+            hard = hard and a == b
+        elif a.is_floating_point() or a.is_complex():
+            d = float((a - b).abs().max()) if a.numel() else 0.0
+            diff = max(diff, d)
+            rel = max(rel, d / max(float(b.abs().max()) if b.numel() else 0.0, 1e-30))
+        else:
+            hard = hard and a.shape == b.shape and torch.equal(a, b)
+    return hard, diff, rel
+
+
+def same_outputs(a, b):
+    from torch.utils._pytree import tree_leaves
+
+    return all(torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def graph_path(label, draws, smi):
+    """Phase 26 for one path: `draws` are two functions, each running the
+    path once on its own input draw (the first captures the path's graphs,
+    the second replays them).  For every entry point the path called: both
+    draws' calls replayed and run eagerly (`__wrapped__`), hard outputs
+    equal and floats within GRAPH_FLOAT_TOL of their scale; then ms per
+    call graphed and eager (median of N_TIMED), graph replays per call and
+    the kernels and copies per call on the card (torch.profiler) graphed
+    and eager."""
+    from srslte_tpu_torch.utils import jit
+
+    s0 = dict(jit.STATS)
+    t0 = time.perf_counter()
+    calls = [first_calls(d) for d in draws]
+    wall = time.perf_counter() - t0
+    s1, sites1, cache = dict(jit.STATS), jit.graphs(by_site=True), jit.graphs()
+    print(f"[26 {label}] the two draws through the path: {wall:.2f} s, "
+          f"{s1['captures'] - s0['captures']} captures in "
+          f"{s1['capture_ms'] - s0['capture_ms']:.1f} ms, the graph pool grew "
+          f"{s1['pool_mb'] - s0['pool_mb']:.1f} MB (to {s1['pool_mb']:.1f}); graphs in the "
+          f"cache {cache['count']}, holding {cache['mb']:.1f} MB of static inputs and outputs",
+          flush=True)
+    for name in calls[0]:
+        check(name in calls[1], f"26 {label}: {name} called in one draw only")
+        worst, outs = (0.0, 0.0), []
+        for c in calls:
+            fn, args, kw = c[name]
+            g = fn(*args, **kw)
+            e = fn.__wrapped__(*args, **kw)
+            hard, diff, rel = graph_diff(g, e)
+            check(hard, f"26 {label}: {name}: graphed and eager hard outputs differ")
+            check(rel <= GRAPH_FLOAT_TOL, f"26 {label}: {name}: float outputs differ by "
+                                          f"{diff} ({rel} of their scale)")
+            worst = max(worst, (rel, diff))
+            outs.append(g)
+        fn, args, kw = calls[1][name]
+        r0 = jit.STATS["replays"]
+        fn(*args, **kw)
+        replays = jit.STATS["replays"] - r0
+        ms_g, _ = median_ms(lambda: fn(*args, **kw))
+        ms_e, _ = median_ms(lambda: fn.__wrapped__(*args, **kw))
+        k_g, busy_g = profiled(lambda: fn(*args, **kw))
+        k_e, busy_e = profiled(lambda: fn.__wrapped__(*args, **kw))
+        site = sites1.get(fn.jit_site.name, {"count": "its stages'", "capture_ms": 0.0,
+                                             "mb": 0.0})
+        print(f"[26 {label}] {name}: both draws equal to __wrapped__ (hard outputs bit for bit, "
+              f"floats within {worst[1]:.3g} = {worst[0]:.3g} of their scale; the draws' outputs "
+              f"{'equal' if same_outputs(*outs) else 'differ'}); ms per call graphed "
+              f"{ms_g:.3f}, eager {ms_e:.3f}; {replays} graph replays per call against "
+              f"{k_e} eager kernels and copies ({k_g} graphed, device busy {busy_g:.3f} ms "
+              f"graphed, {busy_e:.3f} ms eager); graphs {site['count']}, captured in "
+              f"{site['capture_ms']:.1f} ms, holding {site['mb']:.1f} MB; {smi}",
+              flush=True)
+
+
+def profiled(run):
+    """(kernels and copies on the card, device busy ms) of one run() under
+    torch.profiler; (0, 0.0) where the profiler saw no device event."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    rows = [(k.self_device_time_total, k.count) for k in prof.key_averages()
+            if k.device_type == DeviceType.CUDA and k.self_device_time_total > 0]
+    return sum(n for _, n in rows), sum(us for us, _ in rows) / 1e3
+
+
+def blind_draw(a, fft_size, seed):
+    """Phase 12's stream B drawn with another noise seed."""
+    return lambda: blind_receive(blind_impaired(a, fft_size, seed))
+
+
+def phase_graphs(smi, capture=None):
+    """Phase 26: one dispatch per call.  Every entry point the JAX package
+    jits, on its path at the path's full width (graph_path): phase 5's DL
+    (fft_estimate, the PDCCH decoders, Pdsch.decode), phases 13-14's SM
+    (encode2 and decode2 at 2 and 4 ports), phase 15's PMCH, 20a's NR PDSCH
+    (encode, demod_llr, decode), phase 12's blind receiver (cell search,
+    sync_find, the tracker, the MIB's front and PBCH, the DL), phase 17's
+    IntraMeasure and 22a's NPBCH."""
+    from srslte_tpu_torch.examples import npdsch_enodeb, npdsch_ue
+    from srslte_tpu_torch.phy.channel import awgn
+    from srslte_tpu_torch.phy.common.params import CP, Cell
+    from srslte_tpu_torch.phy.enb.enb_dl import EnbDl
+    from srslte_tpu_torch.phy.ofdm import Ofdm
+    from srslte_tpu_torch.phy.phch.pmch import Pmch
+    from srslte_tpu_torch.phy.ue.intra_measure import IntraMeasure
+
+    def cuda_gen(seed):
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(seed)
+        return gen
+
+    chain = Chain()
+    _, s = chain.encode(seed=31)
+
+    def dl(seed):
+        def run():
+            rx = UlChain.noisy(s, SNR_DB, cuda_gen(seed))
+            grid, ce, _ = chain.ue.fft_estimate(rx, SF_IDX)
+            chain.pd.decode_candidates(grid, ce, chain.groups[-1], chain.dci_len, RNTI)
+            chain.receive(rx)
+        return run
+    graph_path("5 DL", (dl(1), dl(2)), smi)
+    del chain, s
+
+    for label, kw in (("13 SM 2x2 TM4", dict(ports=2, tm=4)), ("14 SM 4x4", dict(ports=4))):
+        sm = SmChain(**kw)
+
+        def sm_run(seed, sm=sm):
+            def run():
+                _, rx = sm.encode(seed)
+                sm.receive(rx, SM_SNR_DB if sm.ports == 2 else SM4_SNR_DB, cuda_gen(seed))
+            return run
+        graph_path(label, (sm_run(SM_SEED), sm_run(SM_SEED + 1)), smi)
+        del sm
+
+    pm = Pmch(Cell(n_prb=100, id=1, cp=CP.EXT), area_id=1, sf_idx=3, mcs=20)
+    o = pm.cell.ofdm
+    ofdm = Ofdm(o, normalize=True)
+    bits = torch.as_tensor(np.random.default_rng(SM_SEED + 4).integers(
+        0, 2, (BATCH, pm.cfg.tbs), dtype=np.uint8), device="cuda")
+    sig = ofdm.tx_sf(pm.encode(bits, torch.zeros((BATCH, o.nsymb_sf, o.nof_re),
+                                                 dtype=torch.complex64, device="cuda")))
+    graph_path("15 PMCH", [
+        (lambda seed=seed: pm.decode(ofdm.rx_sf(UlChain.noisy(sig, 20.0, cuda_gen(seed)))))
+        for seed in (1, 2)], smi)
+    del bits, sig
+
+    nr = NrChain("dl")
+
+    def nr_run(seed):
+        def run():
+            _, tx = nr.encode(seed)
+            gen = torch.Generator()
+            gen.manual_seed(seed)
+            rx = NrChain.noisy(tx, NR_SNR_DB["dl"], gen)
+            nr.pdsch.demod_llr(rx)
+            nr.pdsch.decode(rx)
+        return run
+    graph_path("20a NR DL", (nr_run(NR_SEED), nr_run(NR_SEED + 1)), smi)
+    del nr
+
+    if capture is None:
+        capture = blind_capture(Cell(n_prb=BLIND_PRB, id=BLIND_CELL_ID, nof_ports=1))
+    a = capture[0]
+    fft = Cell(n_prb=BLIND_PRB).ofdm.symbol_sz
+    graph_path("12 blind", (blind_draw(a, fft, BLIND_NOISE_SEED),
+                                           blind_draw(a, fft, BLIND_NOISE_SEED + 1)), smi)
+
+    x = 0
+    for pci, gain in ((1, 1.0), (111, 10 ** (-10 / 20))):
+        enb = EnbDl(Cell(n_prb=100, id=pci, nof_ports=1))
+        x = x + gain * enb.gen_signal(enb.put_base(enb.empty_grids((10,), device="cuda"), 2))[:, 0]
+    im = IntraMeasure(100, (1, 111, 300))
+    graph_path("17 IntraMeasure", [
+        (lambda seed=seed: im.measure(awgn(cuda_gen(seed), x, 10.0), 2)) for seed in (1, 2)], smi)
+
+    sig = npdsch_enodeb.generate(NB_ID, NB_RNTI, NB_FRAMES, 5, 1, device="cuda")
+    graph_path("22 NB-IoT", [
+        (lambda seed=seed: npdsch_ue.receive(nb_impair(sig, *NB_IMPAIR[:3], seed), NB_RNTI,
+                                             device="cuda"))
+        for seed in (NB_IMPAIR[3], NB_IMPAIR[3] + 1)], smi)
+
+
 def stack_profile(prof, wall_ms, label="A bulk"):
     """The device's busy share and top kernels over a bulk window."""
     rows, busy_us = device_rows(prof)
@@ -4609,16 +4853,20 @@ def phase_profile(label, run, dispatch_ms):
 
 
 def main():
-    walls = {}
+    from srslte_tpu_torch.utils import jit
+
+    walls, captures = {}, {}
     t_all = time.perf_counter()
 
     def lap(name):
-        """The wall time since the last lap, under `name`."""
+        """The wall time since the last lap, under `name`, and the CUDA
+        graphs captured meanwhile (count, host ms)."""
         now = time.perf_counter()
         walls[name] = now - lap.t
-        lap.t = now
+        captures[name] = (jit.STATS["captures"] - lap.n, jit.STATS["capture_ms"] - lap.ms)
+        lap.t, lap.n, lap.ms = now, jit.STATS["captures"], jit.STATS["capture_ms"]
 
-    lap.t = t_all
+    lap.t, lap.n, lap.ms = t_all, 0, 0.0
     smi = phase_device()
     phase_build()
     lap("1-2 device and build")
@@ -4690,10 +4938,15 @@ def main():
     lap("24 scale-out")
     phase_scripts(capture, smi)
     lap("25 entry points")
+    phase_graphs(smi, capture)
+    lap("26 one dispatch per call")
     counts = {"dl_f32": counts_dl, "dl_bf16": counts_dl16, **counts_ul, "dl_harq": counts_harq,
               "blind": counts_blind, **counts_sm2, **counts_sm4, **counts_rest, **counts_channel,
               "rails": counts_rails, "stack": counts_stack, "s1": counts_s1,
               "nbiot": counts_nbiot, "sidelink": counts_sl, **counts_scale}
+    print(f"[graphs] CUDA graphs captured per phase (count, host ms of warm-up and capture): "
+          f"{', '.join(f'{k} {n} {ms:.0f}' for k, (n, ms) in captures.items())}; in the cache "
+          f"{jit.graphs()}", flush=True)
     print(f"[wall] seconds per phase: {', '.join(f'{k} {v:.1f}' for k, v in walls.items())}; "
           f"total {time.perf_counter() - t_all:.1f}", flush=True)
     line = []

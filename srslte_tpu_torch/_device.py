@@ -14,10 +14,18 @@ the gathers of a UE-specific PDCCH search space) go through `sequence`
 instead: the same upload, kept in a cache of at most `SEQUENCE_BYTES` that
 drops the least recently used, so attaching more UEs cannot grow it without
 bound.
+
+A CUDA graph (`utils.jit`) replays the addresses its capture read, so no
+table may be uploaded while a graph is captured (`_upload` raises: the
+warm-up before the capture fills the cache), the graph holds every table and
+sequence its capture read (`recording`), and `sequence` never drops one that
+a live graph has pinned.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from collections import OrderedDict
 
 import numpy as np
@@ -26,6 +34,8 @@ import torch
 _TABLES: dict = {}
 _SEQUENCES: OrderedDict = OrderedDict()
 SEQUENCE_BYTES = 256 * 2**20
+_PINS: dict = {}
+_LOCAL = threading.local()
 
 
 def default_device() -> torch.device:
@@ -56,13 +66,60 @@ def as_tensor(x, device=None, dtype=None) -> torch.Tensor:
         if device is not None:
             x = x.to(resolve(device))
     else:
-        x = torch.as_tensor(np.array(x)).to(resolve(device))
+        device = resolve(device)
+        _check_not_capturing(device, "host data")
+        x = torch.as_tensor(np.array(x)).to(device)
     return x if dtype is None else x.to(dtype)
 
 
-def _upload(build, device, dtype) -> torch.Tensor:
+def _check_not_capturing(device, what):
+    if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(f"{what} uploaded while a CUDA graph is captured: a graph "
+                           "must read only tensors already on the device")
+
+
+def take(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """t[idx] along dim 0 for an integer tensor idx of any shape.  A 0-d
+    tensor used as an index is read back to the host (as a Python int), so
+    the index goes in as a 1-d tensor."""
+    return t[idx.reshape(-1)].reshape(idx.shape + t.shape[1:])
+
+
+def _upload(key, build, device, dtype) -> torch.Tensor:
+    _check_not_capturing(device, f"table {key!r}")
     t = torch.as_tensor(np.ascontiguousarray(build())).to(device)
     return t if dtype is None else t.to(dtype)
+
+
+@contextlib.contextmanager
+def recording():
+    """Within: every `table` and `sequence` read is appended to the list
+    yielded, as (kind, cache key, tensor)."""
+    _LOCAL.used = used = []
+    try:
+        yield used
+    finally:
+        _LOCAL.used = None
+
+
+def _record(kind, k, t):
+    used = getattr(_LOCAL, "used", None)
+    if used is not None:
+        used.append((kind, k, t))
+    return t
+
+
+def pin(keys):
+    """Keep the sequences of these cache keys while a graph holds them."""
+    for k in keys:
+        _PINS[k] = _PINS.get(k, 0) + 1
+
+
+def unpin(keys):
+    for k in keys:
+        _PINS[k] -= 1
+        if not _PINS[k]:
+            del _PINS[k]
 
 
 def table(key, device, build, dtype=None) -> torch.Tensor:
@@ -71,8 +128,8 @@ def table(key, device, build, dtype=None) -> torch.Tensor:
     k = (key, str(device), dtype)
     t = _TABLES.get(k)
     if t is None:
-        t = _TABLES[k] = _upload(build, device, dtype)
-    return t
+        t = _TABLES[k] = _upload(key, build, device, dtype)
+    return _record("table", k, t)
 
 
 def sequence(key, device, build, dtype=None) -> torch.Tensor:
@@ -83,10 +140,16 @@ def sequence(key, device, build, dtype=None) -> torch.Tensor:
     t = _SEQUENCES.get(k)
     if t is not None:
         _SEQUENCES.move_to_end(k)
-        return t
-    t = _SEQUENCES[k] = _upload(build, device, dtype)
-    total = sum(v.numel() * v.element_size() for v in _SEQUENCES.values())
-    while total > SEQUENCE_BYTES and len(_SEQUENCES) > 1:
-        _, old = _SEQUENCES.popitem(last=False)
-        total -= old.numel() * old.element_size()
-    return t
+        return _record("sequence", k, t)
+    t = _SEQUENCES[k] = _upload(key, build, device, dtype)
+    total = sum(_nbytes(v) for v in _SEQUENCES.values())
+    # the least recently used first, past the pinned ones and the new one
+    for old in [o for o in _SEQUENCES if o not in _PINS and o != k]:
+        if total <= SEQUENCE_BYTES:
+            break
+        total -= _nbytes(_SEQUENCES.pop(old))
+    return _record("sequence", k, t)
+
+
+def _nbytes(t) -> int:
+    return t.numel() * t.element_size()

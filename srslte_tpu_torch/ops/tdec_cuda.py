@@ -48,6 +48,7 @@ and what the kernel is held against on the card.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 from typing import NamedTuple
@@ -55,6 +56,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils import jit
 from . import _build
 
 NEG = -1e9
@@ -257,6 +259,8 @@ def siso_windowed(sys_apr, par, beta_init, L: int, T: int,
         siso_windowed.launches_bf16 += 1
     else:
         siso_windowed.launches += 1
+    name = "siso_windowed_bf16" if bf16 else "siso_windowed"
+    siso_windowed.shapes[(name, f"B={sys_apr.shape[0]} K={sys_apr.shape[1]} L={L} T={T}")] += 1
     return out
 
 
@@ -289,6 +293,9 @@ def blocks_per_sm(plan: SisoPlan, emit_ext: bool = True, perm: bool = False,
     return result.value
 
 
-# kernel launches made by this process, float32 and 16-bit
+# kernel launches made by this process, float32 and 16-bit (a CUDA graph's
+# replay adds the launches it captured)
 siso_windowed.launches = 0
 siso_windowed.launches_bf16 = 0
+siso_windowed.shapes = collections.Counter()  # by (kernel, shape)
+jit.count_launches(siso_windowed, "launches", "launches_bf16", "shapes")

@@ -27,6 +27,7 @@ against it on the card.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 from typing import NamedTuple
@@ -34,6 +35,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils import jit
 from . import _build
 
 GENS = (0o133, 0o171, 0o165)
@@ -180,6 +182,8 @@ def viterbi_decode(llr, length: int, tail_biting: bool = True):
     bits = _launch(_lib(), llr, length, tail_biting, viterbi_plan(llr.shape[0], length,
                                                                   tail_biting))
     viterbi_decode.launches += 1
+    viterbi_decode.shapes[("viterbi_decode", f"B={llr.shape[0]} len={length} "
+                                             f"tail_biting={bool(tail_biting)}")] += 1
     return bits
 
 
@@ -197,4 +201,6 @@ def blocks_per_sm(plan: ViterbiPlan, lib: ctypes.CDLL | None = None) -> int:
     return result.value
 
 
-viterbi_decode.launches = 0  # kernel launches made by this process
+viterbi_decode.launches = 0  # kernel launches made by this process (and replayed)
+viterbi_decode.shapes = collections.Counter()  # by (kernel, shape)
+jit.count_launches(viterbi_decode, "launches", "shapes")

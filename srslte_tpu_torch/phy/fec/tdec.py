@@ -67,7 +67,7 @@ def _tail_beta(tail_x, tail_z):
     tnj = table("tail_next", dev, lambda: tnext.astype(np.int64))
     # beta after all tails: 0 for state 0 else -inf
     beta = torch.full(tail_x.shape[:-1] + (8,), NEG, dtype=torch.float32, device=dev)
-    beta[..., 0] = 0.0
+    beta[..., 0].fill_(0.0)
     for i in (2, 1, 0):
         metric = txj * tail_x[..., i : i + 1] + tzj * tail_z[..., i : i + 1]
         beta = beta[..., tnj] + metric

@@ -20,7 +20,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..._device import as_tensor, table
+from ..._device import as_tensor, table, take
+from ...utils.jit import lazy_jit
 from ..common.sequence import gold_sequence, gold_sequence_signed
 from ..fec.convolutional import conv_encode_np, rm_conv_indices, rm_conv_rx, viterbi_decode
 from ..fec.crc import LTE_CRC16, crc_bits, crc_calc
@@ -147,6 +148,7 @@ class Npbch:
                           bits]).cpu().numpy()
         return bool(host[0]), MibNb.unpack(host[2 : 2 + MIB_NB_LEN]), int(host[1]) % 8
 
+    @lazy_jit(static_argnums=(0,))
     def _decode_dev(self, grid, ce):
         dev = grid.device
         idx = self._re_idx_t(dev)
@@ -173,4 +175,4 @@ class Npbch:
                       lambda: np.stack([crc_mask_nb(1), crc_mask_nb(2)]).astype(np.int32))
         ok = torch.all(calc == (rx ^ masks[torch.arange(16, device=dev) // 8]), dim=-1)
         win = torch.argmax(ok.to(torch.int32))
-        return torch.any(ok), bits[win], win
+        return torch.any(ok), take(bits, win), win

@@ -150,7 +150,7 @@ def nr_dlsch_combine(llr, cfg: NrDlschConfig, state=None, device=None):
     w = w.reshape(lead + (s.C, g.n_full))
     fill = torch.zeros(g.n_full, dtype=w.dtype, device=w.device)
     if s.K_prime < g.k and state is None:
-        fill[s.K_prime : g.k] = -1e4
+        fill[s.K_prime : g.k].fill_(-1e4)
     w = w + fill
     return w if state is None else state + w
 

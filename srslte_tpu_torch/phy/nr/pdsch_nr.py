@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..._device import as_tensor, table
+from ...utils.jit import lazy_jit
 from ..common.scrambling import scramble_bits, scramble_llr
 from ..mimo import equalize_zf, mmse_2x2
 from ..modem.modem import Modulation, demod_soft, modulate
@@ -148,6 +149,7 @@ class NrPdsch:
                      for i in range(3))
 
     # -- gNB side -------------------------------------------------------------
+    @lazy_jit(static_argnums=(0,))
     def encode(self, bits, device=None):
         """bits [..., tbs] -> slot grid complex64: [..., NSYMB_SLOT, nof_re]
         single layer, or [..., 2, NSYMB_SLOT, nof_re] per-port for 2 layers
@@ -229,6 +231,7 @@ class NrPdsch:
             ls = ls + grid[..., l, ks] * torch.conj(pil)  # |pil| = 1
         return ls / len(self._dmrs_syms)
 
+    @lazy_jit(static_argnums=(0,))
     def demod_llr(self, grid, device=None):
         """grid [..., NSYMB_SLOT, nof_re] -> (llr [..., G], noise [...]).
 
@@ -302,6 +305,7 @@ class NrPdsch:
         llr = torch.clamp(llr, -1e3, 1e3)
         return scramble_llr(llr, self.cinit), noise
 
+    @lazy_jit(static_argnums=(0,), static_argnames=("n_iter",))
     def decode(self, grid, n_iter: int = 10, device=None):
         """grid [..., NSYMB_SLOT, nof_re] (single layer) or
         [..., 2rx, NSYMB_SLOT, nof_re] (2 layers) -> (bits, ok, info).

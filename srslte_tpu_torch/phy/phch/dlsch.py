@@ -8,7 +8,8 @@ Every stage is static-shape per (tbs, G, Qm) bucket.  Code blocks of equal K
 are decoded as one batch through the windowed max-log-MAP decoder; CRCs are
 GF(2) matrix products (fec.crc.crc_ok_device).  The decoder's early
 termination is a cascade of phases whose branches are taken on the host from
-CRC counts read back from the device.
+CRC counts read back from the device; the device work between two reads is
+one CUDA graph on the card (`utils.jit.stage`).
 
 Every redundancy version decodes through the same path: the de-rate-matching
 tables of a bucket are built for its `rv`.  Combining several transmissions
@@ -19,11 +20,13 @@ from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ..._device import as_tensor, table
+from ...utils import jit
 from ..fec import crc as crcmod
 from ..fec import tdec, turbo
 from ..fec.cbsegm import CbSegm, cbsegm
@@ -181,116 +184,223 @@ def dlsch_decode(llr, cfg: DlschConfig, n_iter: int = 5, early: int = 1,
     with a few percent early-phase failures it costs early + 1 +
     n_iter/compact_frac instead of n_iter.  Every branch gives the result of
     the same decoder; the branches differ only in which blocks they spend
-    iterations on.
+    iterations on.  The branches are taken on the host (`cascade_rest`):
+    one read on a clean channel, at most three for a batch with one code
+    block size; on the card the device work between two reads is one CUDA
+    graph (`utils.jit.stage`).
 
     siso_dtype: the windowed turbo decoder's working dtype, float32 or
     bfloat16 (`tdec.turbo_start`); all same-K code blocks of the batch share
     one bfloat16 scale.
     """
     llr = as_tensor(llr, device, torch.float32)
+    front = _front(llr, cfg, n_iter=n_iter, early=early, siso_dtype=siso_dtype)
+    return cascade_rest(front, cfg, n_iter, early, compact_frac)
+
+
+class CascadeFront(NamedTuple):
+    """`dlsch_decode` up to its first read on the host: per cluster of code
+    blocks of one K (`_derm_tables` order), the hard decisions [Ng, K] and
+    the decoder state after phase 1; `ok` [clusters], whether every block
+    of the cluster passes its CRC; the batch shape.  A fixed-iteration
+    decode reads nothing: its (bits, crc_ok) are `result`."""
+
+    hard: tuple
+    state: tuple
+    ok: torch.Tensor | None
+    batch: tuple
+    result: tuple | None = None
+
+
+def cascade_front(llr, cfg: DlschConfig, n_iter: int = 5, early: int = 1,
+                  siso_dtype: torch.dtype = torch.float32) -> CascadeFront:
+    """De-rate-matching and phase 1 of every cluster (llr [..., G] float32)."""
+    batch = tuple(llr.shape[:-1])
     if not (early and early < n_iter):
-        return _dlsch_decode_fixed(llr, cfg, n_iter, siso_dtype)
+        return CascadeFront((), (), None, batch,
+                            _dlsch_decode_fixed(llr, cfg, n_iter, siso_dtype))
+    hards, states, oks = [], [], []
+    for j, (K, f0, w) in enumerate(_derm_clusters(llr, cfg)):
+        # all same-K code blocks decode as ONE batch [Ng, 3(K+4)]
+        hard, st = _dec_init(w.reshape((-1, w.shape[-1])), K, early, siso_dtype)
+        hards.append(hard)
+        states.append(st)
+        oks.append(_cb_ok(hard, cfg, j).all())
+    return CascadeFront(tuple(hards), tuple(states), torch.stack(oks), batch)
 
-    seg = cfg.seg
-    batch = llr.shape[:-1]
-    parts, ok_parts = [], []
-    # cascade: early -> +1 -> compacted rest
+
+def cascade_rest(front: CascadeFront, cfg: DlschConfig, n_iter: int = 5, early: int = 1,
+                 compact_frac: int = 8):
+    """The cascade after `cascade_front`: phases 2 and 3 of each cluster
+    that phase 1 left failing, then the CRCs -> (bits, crc_ok)."""
+    if front.result is not None:
+        return front.result
+    hards = list(front.hard)
+    for j, ok in enumerate(front.ok.tolist()):
+        if not ok:
+            hards[j] = _finish(front.hard[j], front.state[j], cfg, j, n_iter, early,
+                               compact_frac)
+    return _tail(tuple(hards), cfg, front.batch)
+
+
+def _finish(hard, st, cfg, j, n_iter, early, compact_frac):
+    """Phases 2 and 3 of cluster j; a host read after phase 2 and one after
+    phase 3's first iteration pick the branch."""
     mid = min(n_iter, early + 1)
-    for K, f0, w in _derm_clusters(llr, cfg):
-        # w [..., C, 3(K+4)]: all same-K code blocks decode as ONE batch
-        count = w.shape[-2]
-        flat = w.reshape((-1, w.shape[-1]))  # [Ng, 3(K+4)]
-        ng = flat.shape[0]
+    hard, st, ok2, branch = _phase2(hard, st, cfg, j, n_iter, early, compact_frac)
+    if mid >= n_iter:
+        return hard
+    branch = int(branch)
+    if branch == 2:  # more failures than the capacity: the whole batch
+        return _more(st, cfg, j, n_iter - mid)
+    if branch == 0:
+        return hard
+    # phase 3: survivors only, resumed, one iteration; then a second, 4x
+    # deeper compaction for the stragglers
+    hard3, st3, ok3, idx, branch3 = _phase3(hard, st, ok2, cfg, j, compact_frac)
+    if n_iter - mid > 1:
+        branch3 = int(branch3)
+        if branch3 == 2:
+            hard3 = _more(st3, cfg, j, n_iter - mid - 1)
+        elif branch3 == 1:
+            hard3 = _phase3b(hard3, st3, ok3, cfg, j, n_iter - mid - 1)
+    return _merged(hard, ok2, idx, hard3)
 
-        if seg.C > 1:
-            cpoly, corder = crcmod.LTE_CRC24B
-            cb_ok = lambda h: crcmod.crc_ok_device(h, cpoly, corder)
-        else:
-            cpoly, corder = crcmod.LTE_CRC24A
-            cb_ok = lambda h, f0=f0: crcmod.crc_ok_device(h[..., f0:], cpoly, corder)
-        cap = max(1, -(-ng // compact_frac))
 
-        # Decoder adapter: windowed code blocks thread a resumable TurboState
-        # through the phases; short ones thread the decoder-1 a-priori.
-        if tdec.state_supported(K):
-            def dec_init(n):
-                st = tdec.turbo_step(tdec.turbo_start(flat, K, siso_dtype=siso_dtype), K, n,
-                                     first=True)
-                return tdec.turbo_hard(st, K)[0], st
+def _cluster(cfg: DlschConfig, j: int):
+    K, f0, *_ = _derm_tables(cfg)[j]
+    return K, f0
 
-            def dec_more(st, n):
-                st = tdec.turbo_step(st, K, n)
-                return tdec.turbo_hard(st, K)[0], st
 
-            def dec_take(st, idx):
-                return tdec.turbo_take(st, idx, K)
-        else:
-            def dec_init(n):
-                hard, _, apr = turbo_decode(flat, K, n_iter=n, return_state=True)
-                return hard, (flat, apr)
+def _cb_ok(hard, cfg: DlschConfig, j: int):
+    """The CRC of each code block [Ng, K] of cluster j."""
+    K, f0 = _cluster(cfg, j)
+    if cfg.seg.C > 1:
+        return crcmod.crc_ok_device(hard, *crcmod.LTE_CRC24B)
+    return crcmod.crc_ok_device(hard[..., f0:], *crcmod.LTE_CRC24A)
 
-            def dec_more(st, n):
-                f, a = st
-                hard, _, apr = turbo_decode(f, K, n_iter=n, apr0=a, return_state=True)
-                return hard, (f, apr)
 
-            def dec_take(st, idx):
-                return (st[0][idx], st[1][idx])
+def _cap(ng: int, compact_frac: int) -> int:
+    return max(1, -(-ng // compact_frac))
 
-        def worst(ok, n):
-            """Indices of the n blocks to iterate further: failures first."""
-            return torch.argsort(ok.to(torch.int32), stable=True)[:n]
 
-        def merge(hard, ok, idx, hard_sub):
-            """hard with rows idx replaced by hard_sub where ok is False."""
-            out = hard.clone()
-            out[idx] = torch.where(ok[idx][:, None], hard[idx], hard_sub)
-            return out
+def _branch(ok, cap: int):
+    """0 when every block passes, 1 when at most `cap` fail, else 2."""
+    nfail = (~ok).sum()
+    return (nfail > 0).to(torch.int32) + (nfail > cap).to(torch.int32)
 
-        # phase 1: `early` iterations on everything (clean channels exit here)
-        hard, st = dec_init(early)
-        if not bool(cb_ok(hard).all()):
-            # phase 2: resume the SAME decoder state (a warm start: equals a
-            # `mid`-iteration decode)
-            hard, st = dec_more(st, mid - early)
-            ok2 = cb_ok(hard) if mid < n_iter else None
-            nfail = int((~ok2).sum()) if mid < n_iter else 0
-            if nfail > cap:
-                hard = dec_more(st, n_iter - mid)[0]
-            elif nfail > 0:
-                # phase 3: survivors only, resumed, one iteration; then a
-                # second, 4x deeper compaction for the stragglers
-                idx = worst(ok2, cap)
-                hard3, st3 = dec_more(dec_take(st, idx), 1)
-                if n_iter - mid > 1:
-                    ok3 = cb_ok(hard3)
-                    cap2 = max(1, cap // 4)
-                    nfail3 = int((~ok3).sum())
-                    if nfail3 > cap2:
-                        hard3 = dec_more(st3, n_iter - mid - 1)[0]
-                    elif nfail3 > 0:
-                        idx3 = worst(ok3, cap2)
-                        hard4 = dec_more(dec_take(st3, idx3), n_iter - mid - 1)[0]
-                        hard3 = merge(hard3, ok3, idx3, hard4)
-                hard = merge(hard, ok2, idx, hard3)
 
+# Decoder adapter: windowed code blocks thread a resumable TurboState through
+# the phases; short ones thread the decoder-1 a-priori.
+
+def _dec_init(flat, K: int, n: int, siso_dtype):
+    if tdec.state_supported(K):
+        st = tdec.turbo_step(tdec.turbo_start(flat, K, siso_dtype=siso_dtype), K, n,
+                             first=True)
+        return tdec.turbo_hard(st, K)[0], st
+    hard, _, apr = turbo_decode(flat, K, n_iter=n, return_state=True)
+    return hard, (flat, apr)
+
+
+def _dec_more(st, K: int, n: int):
+    if tdec.state_supported(K):
+        st = tdec.turbo_step(st, K, n)
+        return tdec.turbo_hard(st, K)[0], st
+    f, a = st
+    hard, _, apr = turbo_decode(f, K, n_iter=n, apr0=a, return_state=True)
+    return hard, (f, apr)
+
+
+def _dec_take(st, idx, K: int):
+    if tdec.state_supported(K):
+        return tdec.turbo_take(st, idx, K)
+    return (st[0][idx], st[1][idx])
+
+
+def _worst(ok, n: int):
+    """Indices of the n blocks to iterate further: failures first."""
+    return torch.argsort(ok.to(torch.int32), stable=True)[:n]
+
+
+def _merge(hard, ok, idx, hard_sub):
+    """hard with rows idx replaced by hard_sub where ok is False."""
+    out = hard.clone()
+    out[idx] = torch.where(ok[idx][:, None], hard[idx], hard_sub)
+    return out
+
+
+# -- the stages between the host reads: one CUDA graph each on the card --------
+
+@jit.stage(static_argnames=("cfg", "j", "n_iter", "early", "compact_frac"))
+def _phase2(hard, st, cfg, j, n_iter, early, compact_frac):
+    """One more iteration on the whole cluster (a warm start: equals a
+    `mid`-iteration decode) -> (hard, state, CRC flags, branch)."""
+    K, _ = _cluster(cfg, j)
+    mid = min(n_iter, early + 1)
+    hard, st = _dec_more(st, K, mid - early)
+    if mid >= n_iter:
+        return hard, st, None, None
+    ok2 = _cb_ok(hard, cfg, j)
+    return hard, st, ok2, _branch(ok2, _cap(hard.shape[0], compact_frac))
+
+
+@jit.stage(static_argnames=("cfg", "j", "n"))
+def _more(st, cfg, j, n):
+    """n more iterations on a whole state -> hard decisions."""
+    return _dec_more(st, _cluster(cfg, j)[0], n)[0]
+
+
+@jit.stage(static_argnames=("cfg", "j", "compact_frac"))
+def _phase3(hard, st, ok2, cfg, j, compact_frac):
+    """The `cap` worst blocks, compacted and iterated once -> (hard3,
+    state3, their CRC flags, their rows, the next branch)."""
+    K, _ = _cluster(cfg, j)
+    cap = _cap(hard.shape[0], compact_frac)
+    idx = _worst(ok2, cap)
+    hard3, st3 = _dec_more(_dec_take(st, idx, K), K, 1)
+    ok3 = _cb_ok(hard3, cfg, j)
+    return hard3, st3, ok3, idx, _branch(ok3, max(1, cap // 4))
+
+
+@jit.stage(static_argnames=("cfg", "j", "n"))
+def _phase3b(hard3, st3, ok3, cfg, j, n):
+    """The second compaction (a quarter of the first's capacity), n
+    iterations, merged back."""
+    K, _ = _cluster(cfg, j)
+    idx3 = _worst(ok3, max(1, hard3.shape[0] // 4))
+    hard4 = _dec_more(_dec_take(st3, idx3, K), K, n)[0]
+    return _merge(hard3, ok3, idx3, hard4)
+
+
+@jit.stage
+def _merged(hard, ok2, idx, hard3):
+    return _merge(hard, ok2, idx, hard3)
+
+
+@jit.stage(static_argnames=("cfg", "batch"))
+def _tail(hards, cfg, batch):
+    """Per-CB payload extraction, the CB and TB CRCs -> (bits, crc_ok).
+
+    Only the first CB of the TB carries filler bits (f0 applies to
+    cluster-local CB 0 iff it is TB CB 0)."""
+    seg = cfg.seg
+    cb_crc = 24 if seg.C > 1 else 0
+    parts, ok_parts = [], []
+    for (K, f0, IDX, *_), hard in zip(_derm_tables(cfg), hards):
+        count = IDX.shape[0]
         hard = hard.reshape(batch + (count, K))
-        cb_crc = 24 if seg.C > 1 else 0
         if seg.C > 1:
-            pb, po = crcmod.LTE_CRC24B
-            ok_parts.append(crcmod.crc_ok_device(hard, pb, po))
-        # per-CB payload extraction: only the first CB of the TB carries
-        # filler bits (f0 applies to cluster-local CB 0 iff it is TB CB 0)
+            ok_parts.append(crcmod.crc_ok_device(hard, *crcmod.LTE_CRC24B))
         for c in range(count):
-            f_c = f0 if c == 0 else 0
-            parts.append(hard[..., c, f_c : K - cb_crc])
-
+            parts.append(hard[..., c, (f0 if c == 0 else 0) : K - cb_crc])
     b = torch.cat(parts, dim=-1)  # [..., tbs+24]
-    pa, oa = crcmod.LTE_CRC24A
-    tb_ok = crcmod.crc_ok_device(b, pa, oa)
+    tb_ok = crcmod.crc_ok_device(b, *crcmod.LTE_CRC24A)
     if ok_parts:
         tb_ok = tb_ok & torch.all(torch.cat(ok_parts, dim=-1), dim=-1)
     return b[..., : cfg.tbs].to(torch.uint8), tb_ok
+
+
+_front = jit.stage(cascade_front, static_argnames=("cfg", "n_iter", "early"))
 
 
 def _dlsch_decode_fixed(llr, cfg: DlschConfig, n_iter: int, siso_dtype=torch.float32):

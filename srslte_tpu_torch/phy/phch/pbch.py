@@ -22,7 +22,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..._device import as_tensor, table
+from ..._device import as_tensor, table, take
+from ...utils.jit import lazy_jit
 from ..common.params import CP, Cell
 from ..common.sequence import gold_sequence, gold_sequence_signed
 from ..fec.convolutional import conv_encode_np, rm_conv_indices, rm_conv_rx, viterbi_decode
@@ -173,6 +174,7 @@ class Pbch:
         win = int(win)
         return bool(ok), bits.cpu().numpy(), win % 4, (1, 2, 4)[win // 4]
 
+    @lazy_jit(static_argnums=(0,))
     def _decode_dev(self, grid, ce, device=None):
         """All (phase x ports) hypotheses in one pass -> (any_ok, bits, win).
 
@@ -213,4 +215,4 @@ class Pbch:
                       .astype(np.int32))
         ok = torch.all(calc == (rx ^ masks), dim=-1)
         win = torch.argmax(ok.to(torch.int32))  # the first hypothesis that passes
-        return torch.any(ok), bits[win], win
+        return torch.any(ok), take(bits, win), win

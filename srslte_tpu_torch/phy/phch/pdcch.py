@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ..._device import as_tensor, sequence
+from ...utils.jit import lazy_jit
 from ..common.params import Cell
 from ..common.scrambling import pdcch_cinit
 from ..common.sequence import gold_sequence, gold_sequence_signed
@@ -38,6 +39,12 @@ COMMON_CANDIDATES = {4: 4, 8: 2}
 
 def rnti_mask(rnti: int) -> np.ndarray:
     return np.array([(rnti >> (15 - i)) & 1 for i in range(16)], np.uint8)
+
+
+def rnti_mask_t(rnti: int, device) -> torch.Tensor:
+    """`rnti_mask` on the device: a traced input of the decoders, so that
+    every RNTI replays one graph."""
+    return sequence(("rnti_mask", rnti), device, lambda: rnti_mask(rnti))
 
 
 def yk(rnti: int, sf_idx: int) -> int:
@@ -151,13 +158,16 @@ class Pdcch:
             [self._scramble_signed[l.cce * 72 : (l.cce + L) * 72] for l in locs]))
         return llr * soff
 
+    @lazy_jit(static_argnums=(0, 3, 4, 5))
     def decode_candidates(self, grid, ce, locs, payload_len: int, rnti: int,
                           device=None):
         """Blind-decode candidates (all of one L): -> (ok [..., ncand],
         bits [..., ncand, K])."""
+        grid = as_tensor(grid, device)
         return self._decode_mixed_traced(grid, ce, (tuple(locs),), payload_len,
-                                         rnti_mask(rnti), device)
+                                         rnti_mask_t(rnti, grid.device))
 
+    @lazy_jit(static_argnums=(0, 3, 4))
     def _decode_mixed_traced(self, grid, ce, locs_by_L: tuple,
                              payload_len: int, rnti_mask_arr, device=None):
         """Blind-decode candidates at MIXED aggregation levels in one shot.
@@ -199,8 +209,9 @@ class Pdcch:
         flat = [l for g in groups for l in g]
         if not flat:
             return []
+        grid = as_tensor(grid, device)
         ok, bits = self._decode_mixed_traced(grid, ce, groups, payload_len,
-                                             rnti_mask(rnti), device)
+                                             rnti_mask_t(rnti, grid.device))
         ok = ok.cpu().numpy()
         bits = bits.cpu().numpy()
         return [(l, bits[i]) for i, l in enumerate(flat) if ok[i]]

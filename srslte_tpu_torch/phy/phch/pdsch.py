@@ -15,20 +15,23 @@ codebook) and `PdschSm4` 4 layers on 4 ports.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from ..._device import as_tensor, table
+from ..._device import as_tensor, sequence, table
+from ...utils.jit import lazy_jit, stage
 from ..chest.refsignal_dl import crs_mask
 from ..common.params import Cell
-from ..common.scrambling import pdsch_cinit, scramble_bits, scramble_llr
+from ..common.scrambling import pdsch_cinit, scramble_bits
+from ..common.sequence import gold_sequence_signed
 from ..mimo.mimo import (diversity_combine, diversity_put, mmse_sm_2layer, mmse_sm_4port,
                          precode_sm_2layer, precode_sm_4port)
 from ..modem.modem import demod_soft, modulate
-from .dlsch import DlschConfig, dlsch_decode, dlsch_encode
+from .dlsch import DlschConfig, cascade_front, cascade_rest, dlsch_encode
 from .ra import DlGrant
 from .regs import nof_ctrl_symbols
 
@@ -150,6 +153,19 @@ class Pdsch:
     def cinit(self) -> int:
         return pdsch_cinit(self.rnti, 0, self.sf_idx, self.cell.id)
 
+    @functools.cached_property
+    def bucket(self) -> "Pdsch":
+        """This processor without its RNTI: the key of its decoding graphs.
+        The RNTI only seeds the scrambling sequence, which the graphs take
+        as an input (`descrambling`), so every UE of a grant bucket replays
+        one graph."""
+        return dataclasses.replace(self, rnti=0)
+
+    def descrambling(self, q: int, n: int, device) -> torch.Tensor:
+        """Codeword q's scrambling sequence as +-1.0 [n] on the device."""
+        seed = pdsch_cinit(self.rnti, q, self.sf_idx, self.cell.id)
+        return sequence(("gold_signed", seed, n), device, lambda: gold_sequence_signed(seed, n))
+
     # -- eNB side -----------------------------------------------------------
     def encode(self, bits, grids, device=None):
         """bits [..., tbs] -> grids with PDSCH REs filled (a new tensor).
@@ -168,14 +184,15 @@ class Pdsch:
         return flat.reshape(grids.shape)
 
     # -- UE side ------------------------------------------------------------
-    def soft_bits(self, grid, ce, noise_var, device=None):
+    def soft_bits(self, grid, ce, noise_var, device=None, scr=None):
         """grid [..., nsym, nre], ce [..., nports, nsym, nre] -> descrambled
         LLRs [..., G] (positive => bit 1).
 
         Equalizes (zero forcing for 1 port, SFBC combining for 2, SFBC-FSTD
         for 4), demodulates, weights each RE's LLRs by its post-equalization
-        SNR and descrambles: what a HARQ soft buffer
-        combines (`mac.harq.combine_llr`) and `decode` decodes.
+        SNR and descrambles (by `scr`, default `descrambling(0, ...)`): what
+        a HARQ soft buffer combines (`mac.harq.combine_llr`) and `decode`
+        decodes.
         """
         grid = as_tensor(grid, device)
         ce = as_tensor(ce, grid.device)
@@ -192,26 +209,39 @@ class Pdsch:
         llr = demod_soft(xhat, self.grant.modulation)
         qm = self.grant.modulation.bits_per_symbol
         llr = llr * torch.repeat_interleave(w, qm, dim=-1)
-        return scramble_llr(llr, self.cinit)
+        if scr is None:
+            scr = self.descrambling(0, llr.shape[-1], llr.device)
+        return llr * scr
 
+    @lazy_jit(static_argnums=(0,), static_argnames=("n_iter",), segmented=True)
     def decode(self, grid, ce, noise_var, n_iter: int = 5, device=None,
                siso_dtype: torch.dtype = torch.float32):
         """grid [..., nsym, nre], ce [..., nports, nsym, nre] -> (bits, crc_ok).
 
         `soft_bits`, then DL-SCH decoding (`siso_dtype`: the turbo decoder's
-        working dtype, see `dlsch.dlsch_decode`).
+        working dtype, see `dlsch.dlsch_decode`); the soft bits and the
+        cascade's first phase are one stage, keyed by `bucket`.
         """
-        llr = self.soft_bits(grid, ce, noise_var, device)
-        return dlsch_decode(llr, self.cfg, n_iter=n_iter, siso_dtype=siso_dtype)
+        grid = as_tensor(grid, device)
+        scr = self.descrambling(0, self.cfg.G, grid.device)
+        front = self.bucket._decode_front(grid, ce, noise_var, scr, n_iter,
+                                          siso_dtype=siso_dtype)
+        return cascade_rest(front, self.cfg, n_iter)
+
+    @stage(static_argnums=(0,), static_argnames=("n_iter",))
+    def _decode_front(self, grid, ce, noise_var, scr, n_iter: int = 5,
+                      siso_dtype: torch.dtype = torch.float32):
+        llr = self.soft_bits(grid, ce, noise_var, scr=scr)
+        return cascade_front(llr, self.cfg, n_iter, siso_dtype=siso_dtype)
 
 
-def _weighted_llr(x, gain, nv, mod, cinit: int):
+def _weighted_llr(x, gain, nv, mod, scr):
     """Soft bits of one codeword's symbols x [..., n]: LLRs weighted by the
-    per-RE post-MMSE gain over the scalar noise nv, descrambled."""
+    per-RE post-MMSE gain over the scalar noise nv, descrambled by scr."""
     llr = demod_soft(x, mod)
     w = gain / torch.clamp(nv, min=1e-9)
     llr = llr * torch.repeat_interleave(w, mod.bits_per_symbol, dim=-1)
-    return scramble_llr(llr, cinit)
+    return llr * scr
 
 
 @dataclass(frozen=True)
@@ -268,6 +298,7 @@ class PdschSm(Pdsch):
         return y, h, nv
 
     # -- eNB side -----------------------------------------------------------
+    @lazy_jit(static_argnums=(0,))
     def encode2(self, bits0, bits1, grids, device=None):
         """Two transport blocks -> 2 layers -> 2 ports (a new tensor)."""
         grids = as_tensor(grids, device)
@@ -281,23 +312,38 @@ class PdschSm(Pdsch):
         return flat.reshape(grids.shape)
 
     # -- UE side ------------------------------------------------------------
-    def soft_bits2(self, grids_rx, ce, noise_var, device=None):
+    def _scrs(self, scr, device):
+        """The two codewords' descrambling sequences (`scr` if given)."""
+        return scr or tuple(self.descrambling(q, self.cfg_q(q).G, device) for q in range(2))
+
+    def soft_bits2(self, grids_rx, ce, noise_var, device=None, scr=None):
         """grids_rx [..., 2rx, nsym, nre], ce [..., 2rx, 2tx, nsym, nre] ->
         the two codewords' descrambled LLRs (MMSE detection, then each
         layer's LLRs weighted by its post-MMSE gain)."""
         y, h, nv = self._rx(grids_rx, ce, noise_var, device)
+        scr = self._scrs(scr, y.device)
         xhat, gain = mmse_sm_2layer(y, h, nv[None], self.pmi)
         return tuple(_weighted_llr(xhat[..., q, :], gain[..., q, :], nv,
-                                   self.grant_q(q).modulation, self.cinit_q(q))
+                                   self.grant_q(q).modulation, scr[q])
                      for q in range(2))
 
+    @lazy_jit(static_argnums=(0,), static_argnames=("n_iter",), segmented=True)
     def decode2(self, grids_rx, ce, noise_var, n_iter: int = 5, device=None,
                 siso_dtype: torch.dtype = torch.float32):
         """grids_rx [..., 2rx, nsym, nre], ce [..., 2rx, 2tx, nsym, nre] ->
         ((bits0, ok0), (bits1, ok1)); each codeword decodes as its own
         DL-SCH batch, as in the C library."""
-        llrs = self.soft_bits2(grids_rx, ce, noise_var, device)
-        return tuple(dlsch_decode(llr, self.cfg_q(q), n_iter=n_iter, siso_dtype=siso_dtype)
+        grids_rx = as_tensor(grids_rx, device)
+        fronts = self.bucket._decode2_front(grids_rx, ce, noise_var,
+                                            self._scrs(None, grids_rx.device), n_iter,
+                                            siso_dtype=siso_dtype)
+        return tuple(cascade_rest(f, self.cfg_q(q), n_iter) for q, f in enumerate(fronts))
+
+    @stage(static_argnums=(0,), static_argnames=("n_iter",))
+    def _decode2_front(self, grids_rx, ce, noise_var, scr, n_iter: int = 5,
+                       siso_dtype: torch.dtype = torch.float32):
+        llrs = self.soft_bits2(grids_rx, ce, noise_var, scr=scr)
+        return tuple(cascade_front(llr, self.cfg_q(q), n_iter, siso_dtype=siso_dtype)
                      for q, llr in enumerate(llrs))
 
 
@@ -326,6 +372,7 @@ class PdschSm4(PdschSm):
         return DlschConfig(tbs=g.tbs, G=2 * n_re * qm, Qm=qm, rv=g.rv)
 
     # -- eNB side -----------------------------------------------------------
+    @lazy_jit(static_argnums=(0,))
     def encode2(self, bits0, bits1, grids, device=None):
         """Two transport blocks -> 4 layers -> 4 ports (a new tensor)."""
         grids = as_tensor(grids, device)
@@ -341,15 +388,16 @@ class PdschSm4(PdschSm):
         return flat.reshape(grids.shape)
 
     # -- UE side ------------------------------------------------------------
-    def soft_bits2(self, grids_rx, ce, noise_var, device=None):
+    def soft_bits2(self, grids_rx, ce, noise_var, device=None, scr=None):
         """grids_rx [..., 4rx, nsym, nre], ce [..., 4rx, 4tx, nsym, nre] ->
         the two codewords' descrambled LLRs (4-layer MMSE, layers 2q and
         2q+1 de-mapped back into codeword q's symbol stream)."""
         y, h, nv = self._rx(grids_rx, ce, noise_var, device)
+        scr = self._scrs(scr, y.device)
         xhat, gain = mmse_sm_4port(y, h, nv[None], self.pmi, n_layers=4)
         lead = xhat.shape[:-2]
         return tuple(
             _weighted_llr(xhat[..., 2 * q:2 * q + 2, :].transpose(-1, -2).reshape(lead + (-1,)),
                           gain[..., 2 * q:2 * q + 2, :].transpose(-1, -2).reshape(lead + (-1,)),
-                          nv, self.grant_q(q).modulation, self.cinit_q(q))
+                          nv, self.grant_q(q).modulation, scr[q])
             for q in range(2))

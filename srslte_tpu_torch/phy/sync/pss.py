@@ -19,7 +19,7 @@ import math
 import numpy as np
 import torch
 
-from ..._device import as_tensor, table
+from ..._device import as_tensor, table, take
 from ..common.zc import pss_sequence
 
 PSS_LEN = 62
@@ -110,7 +110,7 @@ def pss_cfo_compute(x_sym, n_id_2, fft_size: int, device=None):
     """
     x_sym = as_tensor(x_sym, device)
     bank = table(("pss_replicas", fft_size), x_sym.device, lambda: _replicas(fft_size))
-    rep = bank[torch.as_tensor(n_id_2, device=x_sym.device).long()]
+    rep = take(bank, torch.as_tensor(n_id_2, device=x_sym.device).long())
     half = fft_size // 2
     c0 = torch.sum(x_sym[..., :half] * torch.conj(rep[..., :half]), dim=-1)
     c1 = torch.sum(x_sym[..., half:] * torch.conj(rep[..., half:]), dim=-1)

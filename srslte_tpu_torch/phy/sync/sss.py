@@ -18,7 +18,7 @@ import functools
 import numpy as np
 import torch
 
-from ..._device import as_tensor, table
+from ..._device import as_tensor, table, take
 
 SSS_LEN = 62
 N_SECTIONS = 4  # partial-correlation sections (find_sss.c style robustness)
@@ -127,20 +127,20 @@ def sss_find(d, n_id_2, n_sections: int = N_SECTIONS, device=None):
     s_sec = table(("sss_s_sec", n_sections), dev, lambda: s_np, dtype=torch.complex64)
     zbank = table(("sss_zbank", n_sections), dev, lambda: z_np)
     cbank = table(("sss_cbank", n_sections), dev, lambda: c_np)
-    c_sel = cbank[torch.as_tensor(n_id_2, device=dev).long()]  # [..., 2, 31]
+    c_sel = take(cbank, torch.as_tensor(n_id_2, device=dev).long())  # [..., 2, 31]
 
     even = d[..., 0::2] * c_sel[..., 0, :]
     odd = d[..., 1::2] * c_sel[..., 1, :]
 
     p_even = _corr31(even, s_sec)  # [..., 31]
     m_a = torch.argmax(p_even, dim=-1)
-    z_row = zbank[m_a % 8]
+    z_row = take(zbank, m_a % 8)
     p_odd = _corr31(odd * z_row, s_sec)
     m_b = torch.argmax(p_odd, dim=-1)
 
     tbl = table(("sss_nid1",), dev, _nid1_table)
-    nid1_sf0 = tbl[m_a, m_b]
-    nid1_sf5 = tbl[m_b, m_a]
+    nid1_sf0 = take(tbl.reshape(-1), m_a * tbl.shape[1] + m_b)
+    nid1_sf5 = take(tbl.reshape(-1), m_b * tbl.shape[1] + m_a)
     sf5 = nid1_sf0 < 0
     n_id_1 = torch.where(sf5, nid1_sf5, nid1_sf0)
 

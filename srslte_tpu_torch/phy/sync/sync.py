@@ -18,6 +18,7 @@ from typing import NamedTuple
 import torch
 
 from ..._device import as_tensor
+from ...utils.jit import lazy_jit
 from ..common.params import OfdmParams
 from .cfo import cfo_correct
 from .pss import pss_cfo_compute, pss_find_peak
@@ -53,6 +54,7 @@ def window_slice(x, start, length: int):
     return torch.gather(x, -1, idx.expand(x.shape[:-1] + (length,)))
 
 
+@lazy_jit(static_argnums=(1, 2))
 def sync_find(samples, params: OfdmParams, frame_type: str = "fdd",
               device=None) -> SyncResult:
     """Find PSS/SSS in windows [..., L] sampled at params.srate.

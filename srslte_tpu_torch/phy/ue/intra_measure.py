@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ..._device import as_tensor, table
+from ...utils.jit import lazy_jit
 from ..chest.refsignal_dl import crs_pilots, crs_re_indices
 from ..common.params import Cell, OfdmParams
 from ..ofdm import Ofdm
@@ -41,6 +42,7 @@ class IntraMeasure:
                      lambda: np.stack([crs_pilots(c, sf_idx, 0) for c in cells]))
         return syms, ks, refs
 
+    @lazy_jit(static_argnums=(0, 2))
     def measure(self, samples, sf_idx: int, device=None):
         """samples [..., sf_len] aligned captures -> per-PCI metrics.
 

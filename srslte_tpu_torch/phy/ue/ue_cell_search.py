@@ -17,7 +17,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..._device import as_tensor, table
+from ..._device import as_tensor, table, take
+from ...utils.jit import lazy_jit
 from ..common.params import OfdmParams
 from ..sync.sync import SyncResult, sync_find
 
@@ -35,6 +36,7 @@ class CellSearchResult(NamedTuple):
     tdd: object = False  # bool: frame structure type 2 (majority vote)
 
 
+@lazy_jit(static_argnums=(1, 2))
 def cell_search(samples, params: OfdmParams | None = None,
                 frame_type: str = "fdd", device=None) -> CellSearchResult:
     """Search a 1-D sample stream [L] for the strongest cell.
@@ -65,7 +67,7 @@ def cell_search(samples, params: OfdmParams | None = None,
         0, cid, torch.ones_like(cid, dtype=torch.int32))
     bins = torch.arange(505, device=dev)
     best = torch.argmin(torch.where(bins < 504, -counts, 1)).to(torch.int32)
-    votes = counts[best]
+    votes = take(counts, best)
     agree = (r.cell_id == best) & valid
     w = agree.to(torch.float32)
     wsum = torch.clamp(torch.sum(w), min=1e-9)
@@ -74,10 +76,10 @@ def cell_search(samples, params: OfdmParams | None = None,
     # representative timing: the agreeing window with the best PSS metric
     score = torch.where(agree, r.pss_metric, -1.0)
     k = torch.argmax(score)
-    offset = idx[:, 0][k] + r.peak_offset[k]
+    offset = take(idx[:, 0], k) + take(r.peak_offset, k)
     found = votes > 0
     tdd = torch.sum(torch.where(agree, r.tdd, False)) * 2 > votes
-    none = torch.tensor(-1, dtype=torch.int32, device=dev)
+    none = torch.full((), -1, dtype=torch.int32, device=dev)
     return CellSearchResult(
         cell_id=torch.where(found, best, none),
         n_id_1=torch.where(found, torch.div(best, 3, rounding_mode="floor"), none),

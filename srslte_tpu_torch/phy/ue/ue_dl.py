@@ -10,6 +10,7 @@ import functools
 from dataclasses import dataclass
 
 from ..._device import as_tensor
+from ...utils.jit import lazy_jit
 from ..chest.chest_dl import ChestDL
 from ..common.params import Cell
 from ..ofdm import Ofdm
@@ -31,6 +32,7 @@ class UeDl:
     def chest(self) -> ChestDL:
         return ChestDL(self.cell, algorithm=self.chest_algorithm)
 
+    @lazy_jit(static_argnums=(0, 2))
     def fft_estimate(self, samples, sf_idx: int, device=None):
         """samples [..., sf_len] -> (grid, ce, info).
 

@@ -10,6 +10,7 @@ import functools
 from dataclasses import dataclass
 
 from ..._device import as_tensor
+from ...utils.jit import lazy_jit
 from ..chest.chest_dl import ChestDL
 from ..common.params import Cell
 from ..ofdm import Ofdm
@@ -46,11 +47,17 @@ class UeMib:
     def pbch(self) -> Pbch:
         return Pbch(self.cell)
 
+    @lazy_jit(static_argnums=(0,))
+    def _front(self, sf0_samples, device=None):
+        """The OFDM demodulation and the 2-port estimate of subframe 0."""
+        grid = self.ofdm.rx_sf(as_tensor(sf0_samples, device))
+        ce, _ = self.chest.estimate(grid, 0)
+        return grid, ce
+
     def decode(self, sf0_samples, device=None):
         """sf0_samples [sf_len] at the cell rate -> (ok, Mib|None, sfn_offset,
         nof_ports)."""
-        grid = self.ofdm.rx_sf(as_tensor(sf0_samples, device))
-        ce, _ = self.chest.estimate(grid, 0)
+        grid, ce = self._front(sf0_samples, device)
         ok, bits, phase, ports = self.pbch.decode(grid, ce)
         if not ok:
             return False, None, 0, 0

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ..._device import as_tensor, table
+from ...utils.jit import lazy_jit
 from ..common.params import Cell, OfdmParams
 from ..sync.cfo import cfo_correct, cfo_estimate_cp
 from ..sync.pss import pss_find
@@ -30,12 +31,20 @@ from ..sync.sync import sync_find, window_slice
 TRACK_WIN = 8  # +- samples searched around the expected PSS position
 
 
-def _track_dev(samples, pos: int, cfo: float, params: OfdmParams, n_sf: int,
+@lazy_jit(static_argnums=(1,))
+def _slice_prefix(x, n: int):
+    """x[..., :n] as a new tensor."""
+    return x[..., :n].clone()
+
+
+@lazy_jit(static_argnums=(3, 4, 5))
+def _track_dev(samples, pos, cfo, params: OfdmParams, n_sf: int,
                sync_offsets: tuple):
     """Device side of track_block: one batched pass per block.
 
-    samples: the stream (1-D, on the device); sync_offsets: the subframes of
-    the block that contain PSS.  Returns (sfs [n_sf, sf_len],
+    samples: the stream (1-D, on the device); pos and cfo: traced (0-d
+    tensors on the card, so that every block replays one graph);
+    sync_offsets: the subframes of the block that contain PSS.  Returns (sfs [n_sf, sf_len],
     pss_power [n_sync, 3, 2*WIN+1], cp_cfo).
     """
     p = params
@@ -83,7 +92,7 @@ class UeSync:
         half = p.srate * 5 // 1000
         if samples.shape[-1] < half + p.sf_len:
             raise ValueError("need at least 5 ms + 1 subframe for FIND")
-        r = sync_find(samples[..., : half + 4 * p.symbol_sz], p)
+        r = sync_find(_slice_prefix(samples, half + 4 * p.symbol_sz), p)
         if int(r.n_id_1) < 0:
             return None
         # emit from the detected PSS subframe
