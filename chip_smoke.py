@@ -148,7 +148,21 @@ subframes, with the peak device memory of one dispatch per path:
   examples.cell_search.scan on phase 12's capture (cell 301 and phase 12's
   MIB); 25b examples.run_epc, run_enb and run_ue as three processes, the
   eNB and the UE on the card: attach and the SGi echo, each process held
-  to 300 s.
+  to 300 s;
+- (phase 26) one CUDA graph per call: every entry point the JAX package
+  jits, on its path at the path's width, each call of every draw one
+  replay equal to its eager run (`__wrapped__`), its kernel launches by
+  shape the eager run's and its arguments unchanged; phase 5's DL on two
+  16 dB draws, a clean one and one at HARQ_SNR_DB (the cascade's
+  full-batch branch); ms per call graphed and eager; then the graph cache
+  lowered to one graph on the PMCH path (every other graph evicted) and the
+  path replayed after it;
+- (phase 27) the DL-SCH cascade's branches:
+  one graphed `dlsch_decode` captured on the mix of tests/test_torch_fec.py
+  whose 64 TBs all pass phase 1, replayed on all six mixes (K 512 code
+  blocks, the pool measured with the card's SISO kernel), each replay the
+  eager run's bits, CRC flags and launches by shape; nested conds on a toy
+  function held against eager.
 
 Exits non-zero on any failure, and when there is no CUDA device.  The line
 before the last is the card's name and power limit; the last line is
@@ -232,7 +246,9 @@ SISO_SHAPES = {"dl": (BATCH * 11, 5824, 256, 32),  # 11 code blocks of K 5824 pe
                # subframes; phase 24, one shard's 16 subframes of phase 5's
                # deployment (11 x K 5824 each) on the carrier and the time axis
                "sl_sf": (4, 5184, 256, 32), "sl_batch": (BATCH * 4, 5184, 256, 32),
-               "scale": (16 * 11, 5824, 256, 32)}
+               "scale": (16 * 11, 5824, 256, 32),
+               # phase 27: the cascade's mixes, 64 TBs of one K 512 block
+               "cascade": (64, 512, 128, 32)}
 VIT_SHAPES = {"pbch": (8, 40),  # PBCH: 4 frame phases x 2 port hypotheses, MIB + CRC16
               "dl": (BATCH * 18, 44),  # 18 PDCCH candidates, DCI 1A + CRC16
               "ul": (BATCH, 38),  # one long CQI per subframe: 30 bits + CRC8, tail-biting
@@ -270,23 +286,25 @@ PATHS = {"dl_f32": ("dl", "dl"), "dl_bf16": ("dl", "dl"), "ul_f32": ("ul", "ul")
          "channel_epa5": ("epa", "dl"), "channel_eva70": ("eva", "dl"),
          "channel_etu300": ("etu", "dl"), "rails": ("sf", "pbch"), "stack": ("stack", "pbch"),
          "s1": ("stack", "pbch"), "nbiot": (None, "nb_npbch"), "sidelink": ("sl_sf", "sl_psbch"),
-         "scale_carrier": ("scale", None), "scale_time": ("scale", None)}
+         "scale_carrier": ("scale", None), "scale_time": ("scale", None),
+         "cascade": ("cascade", None)}
 KERNEL_PATHS = {"siso_windowed": ("dl_f32", "ul_f32", "dl_harq", "blind", "sm2_tm4", "sm2_tm3",
                                   "sm4", "pmch", "dwpts", "channel_epa5", "channel_eva70",
                                   "channel_etu300", "rails", "stack", "s1", "sidelink",
-                                  "scale_carrier", "scale_time"),
+                                  "scale_carrier", "scale_time", "cascade"),
                 "siso_windowed_bf16": ("dl_bf16", "ul_bf16", "channel_eva70"),
                 "viterbi_decode": ("dl_f32", "dl_bf16", "ul_f32", "ul_bf16", "blind", "sm2_tm4",
                                    "sm2_tm3", "sm4", "channel_epa5", "channel_eva70",
                                    "channel_etu300", "rails", "stack", "s1", "nbiot",
                                    "sidelink")}
-# the main path of the latest slice that runs each kernel: phase 23 (the
-# sidelink, whose first Viterbi launch is 23a's PSBCH [1, 56] and whose first
-# SISO launch is 23b's first PSSCH, B 4 K 5184) for the float32 SISO and the
-# Viterbi; the scale-out paths (phase 24a's sharded step, 24b's 8-shard
-# receive) launch the SISO at one shard's B 176 K 5824 and no Viterbi; the
-# 16-bit SISO's phase 16 (EVA70, a second dispatch on the same noise draw)
-MAIN_PATH = {"siso_windowed": "sidelink", "siso_windowed_bf16": "channel_eva70",
+# the main path of the latest slice that runs each kernel: phase 27 (the
+# DL-SCH cascade's six mixes replayed from one graph, first launch B 64 K
+# 512) for the float32 SISO; phase 23 (the sidelink, whose first Viterbi
+# launch is 23a's PSBCH [1, 56]) for the Viterbi; the scale-out paths (phase
+# 24a's sharded step, 24b's 8-shard receive) launch the SISO at one shard's
+# B 176 K 5824 and no Viterbi; the 16-bit SISO's phase 16 (EVA70, a second
+# dispatch on the same noise draw)
+MAIN_PATH = {"siso_windowed": "cascade", "siso_windowed_bf16": "channel_eva70",
              "viterbi_decode": "sidelink"}
 
 # The spatial-multiplexing DL (phases 13-15, `SmChain`): both TBs at mcs 27
@@ -670,13 +688,15 @@ def check(cond, msg):
 HEAD_START_CYCLES = 2_000_000  # about 1 ms of the card's clock
 
 
-def event_ms(fn, n):
+def event_ms(fn, n, warm=False):
     """Mean device time of fn() over n calls, by CUDA events.  The card is
     first kept busy for about 1 ms, so that the host has queued the calls
     before the start event runs: a kernel shorter than its wrapper's host
-    time is timed on the device, not at the rate the host issues it."""
+    time is timed on the device, not at the rate the host issues it.
+    `warm`: fn just ran on these inputs, so no warm-up call."""
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    fn()  # warm-up (first-call set-up)
+    if not warm:
+        fn()  # warm-up (first-call set-up)
     torch.cuda.synchronize()
     torch.cuda._sleep(HEAD_START_CYCLES)
     start.record()
@@ -772,8 +792,10 @@ def time_siso(name, sys_, par, b0, pi, L, T):
     ms_nat = event_ms(lambda: tdec_cuda.siso_windowed(sys_, par, b0, L, T, emit_ext=True), 10)
     ms_perm = event_ms(lambda: tdec_cuda.siso_windowed(sys_, par, b0, L, T, emit_ext=True,
                                                        perm=pi), 10)
+    # the plain version ran on these inputs in check_siso (or the 16-bit check)
     plain_ms = event_ms(lambda: tdec_cuda.siso_windowed_plain(sys_, par, b0, L, T,
-                                                              emit_ext=True, perm=pi), 1)
+                                                              emit_ext=True, perm=pi), 1,
+                        warm=True)
     W, e = -(-K // L), sys_.element_size()
     # bytes: sys, par, out [B, K] and beta_init [B, 8] in the metric type,
     # perm [K] int32, each once; operations: per window T+L alpha steps (1
@@ -1143,7 +1165,9 @@ class Chain:
 
 def reset_counts():
     from srslte_tpu_torch.ops import tdec_cuda, viterbi_cuda
+    from srslte_tpu_torch.utils import jit
 
+    jit.fold_launches()  # replays before this point count no more
     tdec_cuda.siso_windowed.launches = 0
     tdec_cuda.siso_windowed.launches_bf16 = 0
     viterbi_cuda.viterbi_decode.launches = 0
@@ -1151,7 +1175,9 @@ def reset_counts():
 
 def read_counts():
     from srslte_tpu_torch.ops import tdec_cuda, viterbi_cuda
+    from srslte_tpu_torch.utils import jit
 
+    jit.fold_launches()  # the conditional bodies the replays ran
     return {"siso_windowed": tdec_cuda.siso_windowed.launches,
             "siso_windowed_bf16": tdec_cuda.siso_windowed.launches_bf16,
             "viterbi_decode": viterbi_cuda.viterbi_decode.launches}
@@ -2968,12 +2994,15 @@ def launch_shapes(by_shape, kernels=None):
     captured included) adds one to by_shape[(kernel, shape)]; `kernels`
     keeps only those kernels."""
     from srslte_tpu_torch.ops import tdec_cuda, viterbi_cuda
+    from srslte_tpu_torch.utils import jit
 
     owners = (tdec_cuda.siso_windowed, viterbi_cuda.viterbi_decode)
+    jit.fold_launches()
     before = [collections.Counter(o.shapes) for o in owners]
     try:
         yield by_shape
     finally:
+        jit.fold_launches()
         for o, b in zip(owners, before):
             by_shape.update({k: n for k, n in (o.shapes - b).items()
                              if kernels is None or k[0] in kernels})
@@ -4626,66 +4655,131 @@ def graph_diff(g, e):
     return hard, diff, rel
 
 
-def same_outputs(a, b):
+def same_tree(a, b):
+    """Two trees (arguments or outputs) equal leaf by leaf, tensors bit for
+    bit."""
     from torch.utils._pytree import tree_leaves
 
-    return all(torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
-               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+    def same(x, y):
+        if isinstance(x, torch.Tensor):
+            return torch.equal(x, y)
+        if isinstance(x, np.ndarray):
+            return np.array_equal(x, y)
+        return x is y or x == y
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(same(x, y) for x, y in zip(la, lb))
+
+
+def siso_branch(by_shape):
+    """The SISO launches of a call by shape, as "n x B=.. K=..", in order."""
+    return ", ".join(f"{n} x {k[1].split(' L=')[0]}" for k, n in sorted(by_shape.items())
+                     if k[0].startswith("siso"))
 
 
 def graph_path(label, draws, smi):
-    """Phase 26 for one path: `draws` are two functions, each running the
-    path once on its own input draw (the first captures the path's graphs,
-    the second replays them).  For every entry point the path called: both
-    draws' calls replayed and run eagerly (`__wrapped__`), hard outputs
-    equal and floats within GRAPH_FLOAT_TOL of their scale; then ms per
-    call graphed and eager (median of N_TIMED), graph replays per call and
-    the kernels and copies per call on the card (torch.profiler) graphed
-    and eager."""
+    """Phase 26 for one path: `draws` are functions (or (name, function)
+    pairs), each running the path once on its own input draw (the first
+    captures the path's graphs, the others replay them).  For every entry
+    point the path called, on every draw: one graph replay per call, hard
+    outputs equal to the eager run's (`__wrapped__`) and floats within
+    GRAPH_FLOAT_TOL of their scale, the kernel launches by shape equal to
+    the eager run's (the conditional bodies the replay ran folded in), and
+    every traced argument unchanged by either call; then, on the second
+    draw, ms per call graphed and eager (median of N_TIMED) and the kernels
+    and copies per call on the card (torch.profiler) graphed and eager.
+    Returns {draw name: {entry point: SISO launches by shape}}."""
     from srslte_tpu_torch.utils import jit
 
+    draws = [d if isinstance(d, tuple) else (f"draw {i + 1}", d) for i, d in enumerate(draws)]
     s0 = dict(jit.STATS)
     t0 = time.perf_counter()
-    calls = [first_calls(d) for d in draws]
+    calls = [first_calls(d) for _, d in draws]
     wall = time.perf_counter() - t0
     s1, sites1, cache = dict(jit.STATS), jit.graphs(by_site=True), jit.graphs()
-    print(f"[26 {label}] the two draws through the path: {wall:.2f} s, "
-          f"{s1['captures'] - s0['captures']} captures in "
+    print(f"[26 {label}] the {len(draws)} draws through the path: {wall:.2f} s, "
+          f"{s1['captures'] - s0['captures']} captures ({s1['conds'] - s0['conds']} conds) in "
           f"{s1['capture_ms'] - s0['capture_ms']:.1f} ms, the graph pool grew "
           f"{s1['pool_mb'] - s0['pool_mb']:.1f} MB (to {s1['pool_mb']:.1f}); graphs in the "
           f"cache {cache['count']}, holding {cache['mb']:.1f} MB of static inputs and outputs",
           flush=True)
+    branches = {name: {} for name, _ in draws}
     for name in calls[0]:
-        check(name in calls[1], f"26 {label}: {name} called in one draw only")
         worst, outs = (0.0, 0.0), []
-        for c in calls:
+        for (draw, _), c in zip(draws, calls):
+            check(name in c, f"26 {label}: {name} not called in {draw}")
             fn, args, kw = c[name]
-            g = fn(*args, **kw)
-            e = fn.__wrapped__(*args, **kw)
+            before = tree_clone((args, kw))
+            r0 = jit.STATS["replays"]
+            g, g_shapes = counted_shapes(lambda: fn(*args, **kw))
+            replays = jit.STATS["replays"] - r0
+            check(same_tree((args, kw), before), f"26 {label}: {name}: the graphed call "
+                                                 f"changed an argument ({draw})")
+            e, e_shapes = counted_shapes(lambda: fn.__wrapped__(*args, **kw))
+            check(same_tree((args, kw), before), f"26 {label}: {name}: the eager call changed "
+                                                 f"an argument ({draw})")
+            check(replays == 1, f"26 {label}: {name}: {replays} graph replays in one call")
             hard, diff, rel = graph_diff(g, e)
-            check(hard, f"26 {label}: {name}: graphed and eager hard outputs differ")
+            check(hard, f"26 {label}: {name}: graphed and eager hard outputs differ ({draw})")
             check(rel <= GRAPH_FLOAT_TOL, f"26 {label}: {name}: float outputs differ by "
-                                          f"{diff} ({rel} of their scale)")
+                                          f"{diff} ({rel} of their scale; {draw})")
+            check(g_shapes == e_shapes, f"26 {label}: {name}: launches replayed "
+                                        f"{dict(g_shapes)}, eager {dict(e_shapes)} ({draw})")
+            branches[draw][name] = g_shapes
             worst = max(worst, (rel, diff))
             outs.append(g)
         fn, args, kw = calls[1][name]
-        r0 = jit.STATS["replays"]
-        fn(*args, **kw)
-        replays = jit.STATS["replays"] - r0
         ms_g, _ = median_ms(lambda: fn(*args, **kw))
         ms_e, _ = median_ms(lambda: fn.__wrapped__(*args, **kw))
         k_g, busy_g = profiled(lambda: fn(*args, **kw))
         k_e, busy_e = profiled(lambda: fn.__wrapped__(*args, **kw))
-        site = sites1.get(fn.jit_site.name, {"count": "its stages'", "capture_ms": 0.0,
-                                             "mb": 0.0})
-        print(f"[26 {label}] {name}: both draws equal to __wrapped__ (hard outputs bit for bit, "
-              f"floats within {worst[1]:.3g} = {worst[0]:.3g} of their scale; the draws' outputs "
-              f"{'equal' if same_outputs(*outs) else 'differ'}); ms per call graphed "
-              f"{ms_g:.3f}, eager {ms_e:.3f}; {replays} graph replays per call against "
-              f"{k_e} eager kernels and copies ({k_g} graphed, device busy {busy_g:.3f} ms "
-              f"graphed, {busy_e:.3f} ms eager); graphs {site['count']}, captured in "
-              f"{site['capture_ms']:.1f} ms, holding {site['mb']:.1f} MB; {smi}",
+        site = sites1.get(fn.jit_site.name, {"count": 0, "capture_ms": 0.0, "mb": 0.0})
+        sisos = "; ".join(f"{draw} {siso_branch(b[name])}" for draw, b in branches.items()
+                          if siso_branch(b[name]))
+        print(f"[26 {label}] {name}: every draw 1 graph replay per call, equal to __wrapped__ "
+              f"(hard outputs bit for bit, floats within {worst[1]:.3g} = {worst[0]:.3g} of "
+              f"their scale; the draws' outputs "
+              f"{'equal' if all(same_tree(outs[0], o) for o in outs) else 'differ'}), its "
+              f"launches by shape the eager run's, its arguments unchanged; ms per call graphed "
+              f"{ms_g:.3f}, eager {ms_e:.3f}; {k_e} eager kernels and copies ({k_g} graphed, "
+              f"device busy {busy_g:.3f} ms graphed, {busy_e:.3f} ms eager); graphs "
+              f"{site['count']}, captured in {site['capture_ms']:.1f} ms, holding "
+              f"{site['mb']:.1f} MB{'; SISO launches: ' + sisos if sisos else ''}; {smi}",
               flush=True)
+    return branches
+
+
+def eviction_check(label, fn, args, kw, smi):
+    """The graph cache lowered to GRAPH_BYTES = 1 while the entry point
+    `fn` captures a new key (half the batch of `args`' first tensor): every
+    other graph is evicted (its bodies folded, its sequences unpinned, its
+    graph reset); then `fn` on `args` (its graph evicted: captured again)
+    and on the half batch (replayed), each equal to `__wrapped__`."""
+    from srslte_tpu_torch import _device
+    from srslte_tpu_torch.utils import jit
+
+    half = list(args)
+    i = next(j for j, a in enumerate(half) if isinstance(a, torch.Tensor))
+    half[i] = half[i][: half[i].shape[0] // 2].clone()
+    n0, s0 = jit.graphs()["count"], dict(jit.STATS)
+    saved = jit.GRAPH_BYTES
+    jit.GRAPH_BYTES = 1
+    try:
+        fn(*half, **kw)
+        torch.cuda.synchronize()
+    finally:
+        jit.GRAPH_BYTES = saved
+    (g1,) = jit._GRAPHS.values()
+    check(set(_device._PINS) == set(g1.pinned), "26 eviction: an evicted graph kept its pins")
+    for a in (args, half):
+        check(graph_diff(fn(*a, **kw), fn.__wrapped__(*a, **kw))[0],
+              f"26 {label}: after the eviction a graphed call differs from __wrapped__")
+    s1 = dict(jit.STATS)
+    print(f"[26 eviction] {label}: GRAPH_BYTES lowered to 1 for one capture of half the batch: "
+          f"{n0} graphs evicted, every pin but the new graph's released; the full batch "
+          f"captured again and replayed, the half batch replayed, each equal to __wrapped__ "
+          f"bit for bit ({s1['captures'] - s0['captures']} captures, {s1['replays'] - s0['replays']} "
+          f"replays); {smi}", flush=True)
 
 
 def profiled(run):
@@ -4732,14 +4826,25 @@ def phase_graphs(smi, capture=None):
     chain = Chain()
     _, s = chain.encode(seed=31)
 
-    def dl(seed):
+    def dl(seed, snr_db=SNR_DB):
         def run():
-            rx = UlChain.noisy(s, SNR_DB, cuda_gen(seed))
+            rx = UlChain.noisy(s, snr_db, cuda_gen(seed))
             grid, ce, _ = chain.ue.fft_estimate(rx, SF_IDX)
             chain.pd.decode_candidates(grid, ce, chain.groups[-1], chain.dci_len, RNTI)
             chain.receive(rx)
         return run
-    graph_path("5 DL", (dl(1), dl(2)), smi)
+    # two draws at 16 dB; a clean one, whose blocks all pass phase 1; one at
+    # HARQ_SNR_DB, where more blocks fail phase 2 than the compaction holds
+    # (the full-batch branch: 5 iterations of the whole batch)
+    branches = graph_path("5 DL", (("16 dB", dl(1)), ("16 dB again", dl(2)), ("clean", dl(3, None)),
+                                   (f"{HARQ_SNR_DB} dB", dl(4, HARQ_SNR_DB))), smi)
+    b_full = SISO_SHAPES["dl"][0]
+    for draw, iters in (("clean", 1), (f"{HARQ_SNR_DB} dB", 5)):
+        got = branches[draw]["phy.phch.pdsch.Pdsch.decode"]
+        check(sum(n for k, n in got.items() if k[0] == "siso_windowed"
+                  and k[1].startswith(f"B={b_full} ")) == 2 * iters,
+              f"26 5 DL: the {draw} draw did not take the branch of {iters} full-batch "
+              f"iterations: {dict(got)}")
     del chain, s
 
     for label, kw in (("13 SM 2x2 TM4", dict(ports=2, tm=4)), ("14 SM 4x4", dict(ports=4))):
@@ -4760,9 +4865,11 @@ def phase_graphs(smi, capture=None):
         0, 2, (BATCH, pm.cfg.tbs), dtype=np.uint8), device="cuda")
     sig = ofdm.tx_sf(pm.encode(bits, torch.zeros((BATCH, o.nsymb_sf, o.nof_re),
                                                  dtype=torch.complex64, device="cuda")))
-    graph_path("15 PMCH", [
-        (lambda seed=seed: pm.decode(ofdm.rx_sf(UlChain.noisy(sig, 20.0, cuda_gen(seed)))))
-        for seed in (1, 2)], smi)
+    pmch_draws = [lambda seed=seed: pm.decode(ofdm.rx_sf(UlChain.noisy(sig, 20.0, cuda_gen(seed))))
+                  for seed in (1, 2)]
+    graph_path("15 PMCH", pmch_draws, smi)
+    (fn, args, kw), = first_calls(pmch_draws[1]).values()
+    eviction_check("15 PMCH", fn, args, kw, smi)
     del bits, sig
 
     nr = NrChain("dl")
@@ -4799,6 +4906,143 @@ def phase_graphs(smi, capture=None):
         (lambda seed=seed: npdsch_ue.receive(nb_impair(sig, *NB_IMPAIR[:3], seed), NB_RNTI,
                                              device="cuda"))
         for seed in (NB_IMPAIR[3], NB_IMPAIR[3] + 1)], smi)
+
+
+# Phase 27: every branch of the DL-SCH cascade replayed from one graph.  The
+# mixes of tests/test_torch_fec.py's CASCADE_CASES: 64 TBs of one K 512 code
+# block each (TBS 488 over G 1056, QPSK: capacity 8, second capacity 2), drawn
+# from a pool of 320 noisy TBs by the turbo iterations each needs before its
+# CRC passes (99: never within 5), measured with the card's SISO kernel
+CASCADE_CFG = dict(tbs=488, G=1056, Qm=2)
+CASCADE_N = 64
+CASCADE_MIXES = {
+    "all_pass_after_early": {1: CASCADE_N},
+    "all_pass_after_second": {1: CASCADE_N - 5, 2: 5},
+    "compaction_then_clean": {1: CASCADE_N - 8, 2: 5, 3: 3},
+    "second_compaction": {1: CASCADE_N - 8, 2: 3, 3: 3, 4: 1, 99: 1},
+    "second_capacity_exceeded": {1: CASCADE_N - 8, 2: 2, 3: 2, 4: 2, 5: 1, 99: 1},
+    "full_batch_fallback": {1: CASCADE_N - 14, 2: 3, 3: 5, 4: 3, 5: 2, 99: 1},
+}
+
+
+def cascade_pool(P=320):
+    """tests/test_torch_fec.py's pool, built on the card: (bits, llr, need)
+    as numpy, `need` measured one iteration at a time with the SISO kernel."""
+    from srslte_tpu_torch.phy.fec import crc, tdec
+    from srslte_tpu_torch.phy.phch import dlsch
+
+    cfg = dlsch.DlschConfig(**CASCADE_CFG)
+    rng = np.random.default_rng(0)
+    bits = rng.integers(0, 2, (P, cfg.tbs)).astype(np.uint8)
+    coded = dlsch.dlsch_encode(bits, cfg, device="cuda").cpu().numpy().astype(np.float32)
+    sigma = 10 ** (-np.linspace(-0.5, 5.0, P)[:, None] / 20)
+    y = (1 - 2 * coded) + sigma * rng.standard_normal(coded.shape)
+    llr = (-y * 2 / sigma**2).astype(np.float32)
+    (K, _, w), = dlsch._derm_clusters(torch.as_tensor(llr, device="cuda"), cfg)
+    st = tdec.turbo_start(w.reshape(P, -1), K)
+    need = np.full(P, 99)
+    for it in range(1, 6):
+        st = tdec.turbo_step(st, K, 1, first=(it == 1))
+        ok = crc.crc_ok_device(tdec.turbo_hard(st, K)[0], *crc.LTE_CRC24A).cpu().numpy()
+        need[(need == 99) & ok] = it
+    return bits, llr, need
+
+
+def cascade_rows(name, need):
+    """The pool rows of mix `name`, as tests/test_torch_fec.py draws them."""
+    rng = np.random.default_rng(len(name))
+    rows = np.concatenate([rng.choice(np.flatnonzero(need == n), c, replace=False)
+                           for n, c in CASCADE_MIXES[name].items()])
+    return rng.permutation(rows)
+
+
+def counted_shapes(run):
+    """(run()'s result, launches by (kernel, shape) as the counters read
+    them after a fold), the card synchronised after run()."""
+    by_shape = collections.Counter()
+    with launch_shapes(by_shape):
+        out = run()
+        torch.cuda.synchronize()
+    return out, by_shape
+
+
+def phase_cascade(smi):
+    """Phase 27: one graphed `dlsch_decode` key, captured on the mix whose
+    blocks all pass phase 1, replayed on all six mixes; each replay equal to
+    `__wrapped__` bit for bit, its launches (the conditional bodies it ran
+    folded in) equal to the eager run's, by shape; the CRC flags what each
+    TB's measured iteration count says, the bits the bits sent."""
+    from srslte_tpu_torch.phy.phch import dlsch
+    from srslte_tpu_torch.utils import jit
+
+    toy = jit.stage(lambda x: jit.cond(
+        x.sum() > 0, lambda: jit.cond(x.sum() > 10, lambda: x * 3, lambda: x * 2),
+        lambda: (x - 1).abs() + torch.ones_like(x)))
+    for v in (1.0, 5.0, -1.0, 5.0, 0.0):
+        x = torch.full((4, 3), v, device="cuda")
+        check(torch.equal(toy(x), toy.__wrapped__(x)), f"27: a nested cond on {v} differs")
+    print(f"[27 cascade] nested conds replayed equal to eager on both sides of each predicate "
+          f"(torch {torch.__version__}, CUDA {torch.version.cuda})", flush=True)
+    t0 = time.perf_counter()
+    bits, llr, need = cascade_pool()
+    cfg = dlsch.DlschConfig(**CASCADE_CFG)
+    print(f"[27 cascade] pool of {len(need)} TBs on the card in {time.perf_counter() - t0:.1f} s; "
+          f"TBs by iterations needed {dict(sorted(collections.Counter(need.tolist()).items()))}",
+          flush=True)
+    rows = {name: cascade_rows(name, need) for name in CASCADE_MIXES}
+    mixes = {name: torch.as_tensor(llr[r], device="cuda") for name, r in rows.items()}
+    s0 = dict(jit.STATS)
+    dlsch.dlsch_decode(mixes["all_pass_after_early"], cfg)
+    torch.cuda.synchronize()
+    s1 = dict(jit.STATS)
+    check(s1["captures"] - s0["captures"] == 1, "27: the cascade captured more than one graph")
+    key = jit.graph_key(dlsch.dlsch_decode, mixes["all_pass_after_early"], cfg)
+    g = jit._GRAPHS[key]
+    pool = tuple(jit._pool(torch.device("cuda", torch.cuda.current_device())))
+    bodies = {s.cuda_stream for s in jit.BODY_STREAMS.values()}
+    segs = [seg for seg in torch.cuda.memory_snapshot() if seg["stream"] in bodies]
+    check(segs and all(tuple(seg["segment_pool_id"]) == pool for seg in segs),
+          f"27: memory of the conditional bodies' streams outside the graphs' pool {pool}: "
+          f"{[tuple(seg['segment_pool_id']) for seg in segs]}")
+    print(f"[27 cascade] one graph captured in {s1['capture_ms'] - s0['capture_ms']:.1f} ms "
+          f"with {s1['conds'] - s0['conds']} conds ({2 * (s1['conds'] - s0['conds'])} "
+          f"conditional bodies on {len(bodies)} streams, {len(g.bodies)} of them launch a "
+          f"counted kernel; every segment of those streams in the graphs' pool); the pool grew "
+          f"{s1['pool_mb'] - s0['pool_mb']:.1f} MB", flush=True)
+    for name, x in mixes.items():
+        before = x.clone()
+        r0 = jit.STATS["replays"]
+        (gb, gok), g_shapes = counted_shapes(lambda: dlsch.dlsch_decode(x, cfg))
+        replays = jit.STATS["replays"] - r0
+        check(torch.equal(x, before), f"27 {name}: the graphed call changed its input")
+        (eb, eok), e_shapes = counted_shapes(lambda: dlsch.dlsch_decode.__wrapped__(x, cfg))
+        check(torch.equal(x, before), f"27 {name}: the eager call changed its input")
+        check(replays == 1, f"27 {name}: {replays} replays")
+        check(torch.equal(gb, eb) and torch.equal(gok, eok),
+              f"27 {name}: the replay differs from __wrapped__")
+        check(g_shapes == e_shapes, f"27 {name}: launches replayed {dict(g_shapes)}, "
+                                    f"eager {dict(e_shapes)}")
+        want = torch.as_tensor(need[rows[name]] <= 5, device="cuda")
+        check(torch.equal(gok, want), f"27 {name}: CRC flags differ from the iterations needed")
+        sent = torch.as_tensor(bits[rows[name]], device="cuda")
+        check(torch.equal(gb[gok], sent[gok]), f"27 {name}: a TB that passed differs")
+        ms_g, _ = median_ms(lambda: dlsch.dlsch_decode(x, cfg))
+        ms_e, _ = median_ms(lambda: dlsch.dlsch_decode.__wrapped__(x, cfg))
+        branch = ", ".join(f"{n} x {k[1].split(' L=')[0]}" for k, n in sorted(g_shapes.items()))
+        print(f"[27 cascade] {name}: 1 replay equal to __wrapped__ bit for bit, TB ok "
+              f"{int(gok.sum())}/{CASCADE_N}; SISO launches replayed = eager: {branch}; ms "
+              f"graphed {ms_g:.3f}, eager {ms_e:.3f}; {smi}", flush=True)
+    check(jit.STATS["captures"] == s1["captures"], "27: a mix captured a graph of its own")
+    # the path of the `kernels` line: the six replays, counted
+    torch.cuda.synchronize()
+    reset_counts()
+    for x in mixes.values():
+        dlsch.dlsch_decode(x, cfg)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check(counts["siso_windowed"] > 0, "27: the cascade did not launch the SISO kernel")
+    print(f"[27 cascade] the six replays' launches {counts}", flush=True)
+    return counts
 
 
 def stack_profile(prof, wall_ms, label="A bulk"):
@@ -4940,10 +5184,13 @@ def main():
     lap("25 entry points")
     phase_graphs(smi, capture)
     lap("26 one dispatch per call")
+    counts_cascade = phase_cascade(smi)
+    lap("27 cascade branches")
     counts = {"dl_f32": counts_dl, "dl_bf16": counts_dl16, **counts_ul, "dl_harq": counts_harq,
               "blind": counts_blind, **counts_sm2, **counts_sm4, **counts_rest, **counts_channel,
               "rails": counts_rails, "stack": counts_stack, "s1": counts_s1,
-              "nbiot": counts_nbiot, "sidelink": counts_sl, **counts_scale}
+              "nbiot": counts_nbiot, "sidelink": counts_sl, **counts_scale,
+              "cascade": counts_cascade}
     print(f"[graphs] CUDA graphs captured per phase (count, host ms of warm-up and capture): "
           f"{', '.join(f'{k} {n} {ms:.0f}' for k, (n, ms) in captures.items())}; in the cache "
           f"{jit.graphs()}", flush=True)

@@ -28,6 +28,7 @@ NR_CRC24C = (0x1B2B117, 24)  # 38.212 §5.1 (PBCH/PDCCH NR)
 NR_CRC11 = (0xE21, 11)  # 38.212 §5.1 (UCI 20 <= A)
 NR_CRC6 = (0x61, 6)  # 38.212 §5.1 (UCI 12 <= A <= 19)
 LTE_CRC16 = (0x11021, 16)
+LTE_CRC12 = (0x180F, 12)  # used by NB-IoT / legacy
 LTE_CRC8 = (0x19B, 8)
 
 

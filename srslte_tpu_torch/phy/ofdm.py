@@ -135,3 +135,12 @@ class Ofdm:
             bins = bins * float(1.0 / np.sqrt(n))
         return bins[..., self._idx("_re_to_bin", samples.device)]
 
+
+def ofdm_tx(params: OfdmParams, grid, device=None, **kw):
+    """`Ofdm(params, **kw).tx_sf(grid)` in one call."""
+    return Ofdm(params, **kw).tx_sf(grid, device)
+
+
+def ofdm_rx(params: OfdmParams, samples, device=None, **kw):
+    """`Ofdm(params, **kw).rx_sf(samples)` in one call."""
+    return Ofdm(params, **kw).rx_sf(samples, device)

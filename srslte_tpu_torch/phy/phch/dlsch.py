@@ -7,9 +7,9 @@ concatenation; decode reverses with soft combining and CRC gates).
 Every stage is static-shape per (tbs, G, Qm) bucket.  Code blocks of equal K
 are decoded as one batch through the windowed max-log-MAP decoder; CRCs are
 GF(2) matrix products (fec.crc.crc_ok_device).  The decoder's early
-termination is a cascade of phases whose branches are taken on the host from
-CRC counts read back from the device; the device work between two reads is
-one CUDA graph on the card (`utils.jit.stage`).
+termination is a cascade of phases whose branches are `utils.jit.cond` on
+CRC counts, as the reference's are `lax.cond`: one CUDA graph on the card,
+whatever the branches taken.
 
 Every redundancy version decodes through the same path: the de-rate-matching
 tables of a bucket are built for its `rv`.  Combining several transmissions
@@ -20,7 +20,6 @@ from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
-from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -163,6 +162,7 @@ def _derm_clusters(llr, cfg: DlschConfig):
     return out
 
 
+@jit.stage(static_argnames=("cfg", "n_iter", "early", "compact_frac", "device", "siso_dtype"))
 def dlsch_decode(llr, cfg: DlschConfig, n_iter: int = 5, early: int = 1,
                  compact_frac: int = 8, device=None,
                  siso_dtype: torch.dtype = torch.float32):
@@ -184,87 +184,71 @@ def dlsch_decode(llr, cfg: DlschConfig, n_iter: int = 5, early: int = 1,
     with a few percent early-phase failures it costs early + 1 +
     n_iter/compact_frac instead of n_iter.  Every branch gives the result of
     the same decoder; the branches differ only in which blocks they spend
-    iterations on.  The branches are taken on the host (`cascade_rest`):
-    one read on a clean channel, at most three for a batch with one code
-    block size; on the card the device work between two reads is one CUDA
-    graph (`utils.jit.stage`).
+    iterations on.  They are the reference's five `jit.cond` per cluster of
+    code blocks, on counts the device computes: on the card one graph
+    holds them all, and a replay runs the branches the counts pick.
 
     siso_dtype: the windowed turbo decoder's working dtype, float32 or
     bfloat16 (`tdec.turbo_start`); all same-K code blocks of the batch share
     one bfloat16 scale.
     """
     llr = as_tensor(llr, device, torch.float32)
-    front = _front(llr, cfg, n_iter=n_iter, early=early, siso_dtype=siso_dtype)
-    return cascade_rest(front, cfg, n_iter, early, compact_frac)
-
-
-class CascadeFront(NamedTuple):
-    """`dlsch_decode` up to its first read on the host: per cluster of code
-    blocks of one K (`_derm_tables` order), the hard decisions [Ng, K] and
-    the decoder state after phase 1; `ok` [clusters], whether every block
-    of the cluster passes its CRC; the batch shape.  A fixed-iteration
-    decode reads nothing: its (bits, crc_ok) are `result`."""
-
-    hard: tuple
-    state: tuple
-    ok: torch.Tensor | None
-    batch: tuple
-    result: tuple | None = None
-
-
-def cascade_front(llr, cfg: DlschConfig, n_iter: int = 5, early: int = 1,
-                  siso_dtype: torch.dtype = torch.float32) -> CascadeFront:
-    """De-rate-matching and phase 1 of every cluster (llr [..., G] float32)."""
-    batch = tuple(llr.shape[:-1])
     if not (early and early < n_iter):
-        return CascadeFront((), (), None, batch,
-                            _dlsch_decode_fixed(llr, cfg, n_iter, siso_dtype))
-    hards, states, oks = [], [], []
-    for j, (K, f0, w) in enumerate(_derm_clusters(llr, cfg)):
-        # all same-K code blocks decode as ONE batch [Ng, 3(K+4)]
-        hard, st = _dec_init(w.reshape((-1, w.shape[-1])), K, early, siso_dtype)
-        hards.append(hard)
-        states.append(st)
-        oks.append(_cb_ok(hard, cfg, j).all())
-    return CascadeFront(tuple(hards), tuple(states), torch.stack(oks), batch)
+        return _dlsch_decode_fixed(llr, cfg, n_iter, siso_dtype)
+    hards = tuple(_cascade(w.reshape((-1, w.shape[-1])), cfg, j, n_iter, early, compact_frac,
+                           siso_dtype)
+                  for j, (_, _, w) in enumerate(_derm_clusters(llr, cfg)))
+    return _tail(hards, cfg, tuple(llr.shape[:-1]))
 
 
-def cascade_rest(front: CascadeFront, cfg: DlschConfig, n_iter: int = 5, early: int = 1,
-                 compact_frac: int = 8):
-    """The cascade after `cascade_front`: phases 2 and 3 of each cluster
-    that phase 1 left failing, then the CRCs -> (bits, crc_ok)."""
-    if front.result is not None:
-        return front.result
-    hards = list(front.hard)
-    for j, ok in enumerate(front.ok.tolist()):
-        if not ok:
-            hards[j] = _finish(front.hard[j], front.state[j], cfg, j, n_iter, early,
-                               compact_frac)
-    return _tail(tuple(hards), cfg, front.batch)
-
-
-def _finish(hard, st, cfg, j, n_iter, early, compact_frac):
-    """Phases 2 and 3 of cluster j; a host read after phase 2 and one after
-    phase 3's first iteration pick the branch."""
+def _cascade(flat, cfg: DlschConfig, j: int, n_iter: int, early: int, compact_frac: int,
+             siso_dtype):
+    """The cascade of cluster j, all its code blocks [Ng, 3(K+4)] as one
+    batch -> hard decisions [Ng, K]."""
+    K, _ = _cluster(cfg, j)
     mid = min(n_iter, early + 1)
-    hard, st, ok2, branch = _phase2(hard, st, cfg, j, n_iter, early, compact_frac)
-    if mid >= n_iter:
-        return hard
-    branch = int(branch)
-    if branch == 2:  # more failures than the capacity: the whole batch
-        return _more(st, cfg, j, n_iter - mid)
-    if branch == 0:
-        return hard
-    # phase 3: survivors only, resumed, one iteration; then a second, 4x
-    # deeper compaction for the stragglers
-    hard3, st3, ok3, idx, branch3 = _phase3(hard, st, ok2, cfg, j, compact_frac)
-    if n_iter - mid > 1:
-        branch3 = int(branch3)
-        if branch3 == 2:
-            hard3 = _more(st3, cfg, j, n_iter - mid - 1)
-        elif branch3 == 1:
-            hard3 = _phase3b(hard3, st3, ok3, cfg, j, n_iter - mid - 1)
-    return _merged(hard, ok2, idx, hard3)
+    cap = _cap(flat.shape[0], compact_frac)
+    cap2 = max(1, cap // 4)
+    # phase 1: `early` iterations on everything (clean channels exit here)
+    hard1, st1 = _dec_init(flat, K, early, siso_dtype)
+
+    def phases23():
+        # phase 2: resume the SAME decoder state for mid - early more
+        # iterations (a warm start: equals a `mid`-iteration decode)
+        hard2, st2 = _dec_more(st1, K, mid - early)
+        if mid >= n_iter:
+            return hard2
+        ok2 = _cb_ok(hard2, cfg, j)
+        idx = _worst(ok2, cap)
+        nfail = (~ok2).sum()
+
+        def compact():
+            # phase 3: survivors only, resumed, one iteration; then a
+            # second, 4x deeper compaction for the stragglers
+            hard3, st3 = _dec_more(_dec_take(st2, idx, K), K, 1)
+            if n_iter - mid > 1:
+                ok3 = _cb_ok(hard3, cfg, j)
+                idx3 = _worst(ok3, cap2)
+                nfail3 = (~ok3).sum()
+
+                def deeper():
+                    hard4 = _dec_more(_dec_take(st3, idx3, K), K, n_iter - mid - 1)[0]
+                    return _merge(hard3, ok3, idx3, hard4)
+
+                def full3():
+                    return _dec_more(st3, K, n_iter - mid - 1)[0]
+
+                hard3 = jit.cond(nfail3 == 0, lambda h=hard3: h,
+                                 lambda: jit.cond(nfail3 <= cap2, deeper, full3))
+            return _merge(hard2, ok2, idx, hard3)
+
+        def full():
+            return _dec_more(st2, K, n_iter - mid)[0]
+
+        return jit.cond(nfail == 0, lambda: hard2,
+                        lambda: jit.cond(nfail <= cap, compact, full))
+
+    return jit.cond(_cb_ok(hard1, cfg, j).all(), lambda: hard1, phases23)
 
 
 def _cluster(cfg: DlschConfig, j: int):
@@ -282,12 +266,6 @@ def _cb_ok(hard, cfg: DlschConfig, j: int):
 
 def _cap(ng: int, compact_frac: int) -> int:
     return max(1, -(-ng // compact_frac))
-
-
-def _branch(ok, cap: int):
-    """0 when every block passes, 1 when at most `cap` fail, else 2."""
-    nfail = (~ok).sum()
-    return (nfail > 0).to(torch.int32) + (nfail > cap).to(torch.int32)
 
 
 # Decoder adapter: windowed code blocks thread a resumable TurboState through
@@ -329,55 +307,6 @@ def _merge(hard, ok, idx, hard_sub):
     return out
 
 
-# -- the stages between the host reads: one CUDA graph each on the card --------
-
-@jit.stage(static_argnames=("cfg", "j", "n_iter", "early", "compact_frac"))
-def _phase2(hard, st, cfg, j, n_iter, early, compact_frac):
-    """One more iteration on the whole cluster (a warm start: equals a
-    `mid`-iteration decode) -> (hard, state, CRC flags, branch)."""
-    K, _ = _cluster(cfg, j)
-    mid = min(n_iter, early + 1)
-    hard, st = _dec_more(st, K, mid - early)
-    if mid >= n_iter:
-        return hard, st, None, None
-    ok2 = _cb_ok(hard, cfg, j)
-    return hard, st, ok2, _branch(ok2, _cap(hard.shape[0], compact_frac))
-
-
-@jit.stage(static_argnames=("cfg", "j", "n"))
-def _more(st, cfg, j, n):
-    """n more iterations on a whole state -> hard decisions."""
-    return _dec_more(st, _cluster(cfg, j)[0], n)[0]
-
-
-@jit.stage(static_argnames=("cfg", "j", "compact_frac"))
-def _phase3(hard, st, ok2, cfg, j, compact_frac):
-    """The `cap` worst blocks, compacted and iterated once -> (hard3,
-    state3, their CRC flags, their rows, the next branch)."""
-    K, _ = _cluster(cfg, j)
-    cap = _cap(hard.shape[0], compact_frac)
-    idx = _worst(ok2, cap)
-    hard3, st3 = _dec_more(_dec_take(st, idx, K), K, 1)
-    ok3 = _cb_ok(hard3, cfg, j)
-    return hard3, st3, ok3, idx, _branch(ok3, max(1, cap // 4))
-
-
-@jit.stage(static_argnames=("cfg", "j", "n"))
-def _phase3b(hard3, st3, ok3, cfg, j, n):
-    """The second compaction (a quarter of the first's capacity), n
-    iterations, merged back."""
-    K, _ = _cluster(cfg, j)
-    idx3 = _worst(ok3, max(1, hard3.shape[0] // 4))
-    hard4 = _dec_more(_dec_take(st3, idx3, K), K, n)[0]
-    return _merge(hard3, ok3, idx3, hard4)
-
-
-@jit.stage
-def _merged(hard, ok2, idx, hard3):
-    return _merge(hard, ok2, idx, hard3)
-
-
-@jit.stage(static_argnames=("cfg", "batch"))
 def _tail(hards, cfg, batch):
     """Per-CB payload extraction, the CB and TB CRCs -> (bits, crc_ok).
 
@@ -398,9 +327,6 @@ def _tail(hards, cfg, batch):
     if ok_parts:
         tb_ok = tb_ok & torch.all(torch.cat(ok_parts, dim=-1), dim=-1)
     return b[..., : cfg.tbs].to(torch.uint8), tb_ok
-
-
-_front = jit.stage(cascade_front, static_argnames=("cfg", "n_iter", "early"))
 
 
 def _dlsch_decode_fixed(llr, cfg: DlschConfig, n_iter: int, siso_dtype=torch.float32):

@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from ..._device import as_tensor, sequence, table
-from ...utils.jit import lazy_jit, stage
+from ...utils.jit import lazy_jit
 from ..chest.refsignal_dl import crs_mask
 from ..common.params import Cell
 from ..common.scrambling import pdsch_cinit, scramble_bits
@@ -31,7 +31,7 @@ from ..common.sequence import gold_sequence_signed
 from ..mimo.mimo import (diversity_combine, diversity_put, mmse_sm_2layer, mmse_sm_4port,
                          precode_sm_2layer, precode_sm_4port)
 from ..modem.modem import demod_soft, modulate
-from .dlsch import DlschConfig, cascade_front, cascade_rest, dlsch_encode
+from .dlsch import DlschConfig, dlsch_decode, dlsch_encode
 from .ra import DlGrant
 from .regs import nof_ctrl_symbols
 
@@ -213,26 +213,33 @@ class Pdsch:
             scr = self.descrambling(0, llr.shape[-1], llr.device)
         return llr * scr
 
-    @lazy_jit(static_argnums=(0,), static_argnames=("n_iter",), segmented=True)
+    @lazy_jit(static_argnums=(0,), static_argnames=("n_iter",),
+              bucket=lambda args, device: _by_bucket(args, device, 1))
     def decode(self, grid, ce, noise_var, n_iter: int = 5, device=None,
-               siso_dtype: torch.dtype = torch.float32):
+               siso_dtype: torch.dtype = torch.float32, scr=None):
         """grid [..., nsym, nre], ce [..., nports, nsym, nre] -> (bits, crc_ok).
 
-        `soft_bits`, then DL-SCH decoding (`siso_dtype`: the turbo decoder's
-        working dtype, see `dlsch.dlsch_decode`); the soft bits and the
-        cascade's first phase are one stage, keyed by `bucket`.
+        `soft_bits` (descrambled by `scr`, default this processor's
+        sequence), then DL-SCH decoding (`siso_dtype`: the turbo decoder's
+        working dtype, see `dlsch.dlsch_decode`).  On the card one graph
+        per `bucket`: the sequence goes in as an input.
         """
         grid = as_tensor(grid, device)
-        scr = self.descrambling(0, self.cfg.G, grid.device)
-        front = self.bucket._decode_front(grid, ce, noise_var, scr, n_iter,
-                                          siso_dtype=siso_dtype)
-        return cascade_rest(front, self.cfg, n_iter)
-
-    @stage(static_argnums=(0,), static_argnames=("n_iter",))
-    def _decode_front(self, grid, ce, noise_var, scr, n_iter: int = 5,
-                      siso_dtype: torch.dtype = torch.float32):
+        if scr is None:
+            scr = self.descrambling(0, self.cfg.G, grid.device)
         llr = self.soft_bits(grid, ce, noise_var, scr=scr)
-        return cascade_front(llr, self.cfg, n_iter, siso_dtype=siso_dtype)
+        return dlsch_decode(llr, self.cfg, n_iter, siso_dtype=siso_dtype)
+
+
+def _by_bucket(args, device, codewords):
+    """A graphed `decode` (1 codeword) or `decode2` (2) as its graph takes
+    it: the processor's `bucket`, and its descrambling sequences as the
+    `scr` input, so that every UE of a grant bucket replays one graph."""
+    p = args["self"]
+    if args["scr"] is None:
+        args["scr"] = (p.descrambling(0, p.cfg.G, device) if codewords == 1
+                       else p._scrs(None, device))
+    args["self"] = p.bucket
 
 
 def _weighted_llr(x, gain, nv, mod, scr):
@@ -327,23 +334,17 @@ class PdschSm(Pdsch):
                                    self.grant_q(q).modulation, scr[q])
                      for q in range(2))
 
-    @lazy_jit(static_argnums=(0,), static_argnames=("n_iter",), segmented=True)
+    @lazy_jit(static_argnums=(0,), static_argnames=("n_iter",),
+              bucket=lambda args, device: _by_bucket(args, device, 2))
     def decode2(self, grids_rx, ce, noise_var, n_iter: int = 5, device=None,
-                siso_dtype: torch.dtype = torch.float32):
+                siso_dtype: torch.dtype = torch.float32, scr=None):
         """grids_rx [..., 2rx, nsym, nre], ce [..., 2rx, 2tx, nsym, nre] ->
         ((bits0, ok0), (bits1, ok1)); each codeword decodes as its own
-        DL-SCH batch, as in the C library."""
+        DL-SCH batch, as in the C library (`scr`: the two codewords'
+        descrambling sequences, default this processor's)."""
         grids_rx = as_tensor(grids_rx, device)
-        fronts = self.bucket._decode2_front(grids_rx, ce, noise_var,
-                                            self._scrs(None, grids_rx.device), n_iter,
-                                            siso_dtype=siso_dtype)
-        return tuple(cascade_rest(f, self.cfg_q(q), n_iter) for q, f in enumerate(fronts))
-
-    @stage(static_argnums=(0,), static_argnames=("n_iter",))
-    def _decode2_front(self, grids_rx, ce, noise_var, scr, n_iter: int = 5,
-                       siso_dtype: torch.dtype = torch.float32):
-        llrs = self.soft_bits2(grids_rx, ce, noise_var, scr=scr)
-        return tuple(cascade_front(llr, self.cfg_q(q), n_iter, siso_dtype=siso_dtype)
+        llrs = self.soft_bits2(grids_rx, ce, noise_var, scr=self._scrs(scr, grids_rx.device))
+        return tuple(dlsch_decode(llr, self.cfg_q(q), n_iter, siso_dtype=siso_dtype)
                      for q, llr in enumerate(llrs))
 
 

@@ -27,13 +27,13 @@ import numpy as np
 import torch
 
 from ..._device import as_tensor, table
-from ...utils.jit import lazy_jit, stage
+from ...utils.jit import lazy_jit
 from ..common.params import CP, Cell
 from ..common.scrambling import scramble_bits, scramble_llr
 from ..common.sequence import gold_sequence
 from ..mimo import equalize_zf
 from ..modem.modem import demod_soft, modulate
-from .dlsch import DlschConfig, cascade_front, cascade_rest, dlsch_encode
+from .dlsch import DlschConfig, dlsch_decode, dlsch_encode
 from .ra import DlGrant, dl_tbs
 
 MBSFN_RS_SYMBOLS = (2, 6, 10)  # extended-CP subframe symbol indices
@@ -175,17 +175,11 @@ class Pmch:
         ce_sf = ce[..., None, :].expand(ce.shape[:-1] + (o.nsymb_sf, o.nof_re))
         return ce_sf, torch.clamp(noise, min=1e-9)
 
-    @lazy_jit(static_argnums=(0,), static_argnames=("n_iter",), segmented=True)
+    @lazy_jit(static_argnums=(0,), static_argnames=("n_iter",))
     def decode(self, grid, n_iter: int = 5, device=None,
                siso_dtype: torch.dtype = torch.float32):
-        """grid [..., nsym_sf, nof_re] -> (bits, crc_ok); the estimate, the
-        soft bits and the cascade's first phase are one stage."""
-        front = self._decode_front(grid, n_iter, device, siso_dtype)
-        return cascade_rest(front, self.cfg, n_iter)
-
-    @stage(static_argnums=(0,), static_argnames=("n_iter",))
-    def _decode_front(self, grid, n_iter: int = 5, device=None,
-                      siso_dtype: torch.dtype = torch.float32):
+        """grid [..., nsym_sf, nof_re] -> (bits, crc_ok): the estimate, the
+        soft bits and DL-SCH decoding."""
         grid = as_tensor(grid, device)
         ce, noise = self.chest(grid)
         idx, _, _ = self._tables(grid.device)
@@ -197,4 +191,4 @@ class Pmch:
         qm = self.grant.modulation.bits_per_symbol
         llr = llr * torch.repeat_interleave(w, qm, dim=-1)
         llr = scramble_llr(llr, self.cinit)
-        return cascade_front(llr, self.cfg, n_iter, siso_dtype=siso_dtype)
+        return dlsch_decode(llr, self.cfg, n_iter, siso_dtype=siso_dtype)

@@ -11,7 +11,7 @@ the receiver reconstructs the original PDU's data field byte-by-byte from
 the SO offsets and recovers SDU boundaries from each segment's own LIs.
 
 SO-granular STATUS NACKs (E2=1, 36.322 §6.2.2.5): a receiver holding only
-parts of a re-segmented PDU NACKs just the missing byte ranges
+parts of a PDU split again into segments NACKs just the missing byte ranges
 (SOstart/SOend, with the 0x7FFF open-tail marker), and the transmitter
 retransmits exactly those ranges as RF=1 segments.
 """
@@ -229,7 +229,7 @@ class RlcAm:
                 self._do_status = False
                 self._status_wait = self.t_status_prohibit
                 return pdu
-        # 2. retransmissions (re-segmented if the grant shrank; byte-range
+        # 2. retransmissions (split into segments if the grant shrank; byte-range
         #    only when the peer sent SO-granular NACKs)
         while self._retx:
             sn = self._retx[0]

@@ -64,7 +64,7 @@ class RlcUm:
     # TX state
     _queue: deque = field(default_factory=deque)
     _vt_us: int = 0
-    _partial: bytes = b""  # remainder of a segmented SDU
+    _partial: bytes = b""  # remainder of an SDU split across PDUs
     # RX state
     _rx_buf: dict = field(default_factory=dict)
     _vr_ur: int = 0  # earliest SN still considered for reordering

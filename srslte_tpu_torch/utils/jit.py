@@ -24,11 +24,18 @@ no eager fallback.  On the CPU the function is called directly; so are the
 wrapped functions that another one calls while it is warmed up or captured
 (they become part of its graph).  ``fn.__wrapped__`` is the eager function.
 
-A function that takes branches on the host from values it reads off the
-device (the DL-SCH decoder's early-termination cascade) cannot be one
-graph.  ``lazy_jit(segmented=True)`` marks such an entry point: it runs as
-Python, and each stage it calls between two reads is a `stage`, a graph of
-its own.
+A branch taken on a value the device computed (the DL-SCH decoder's
+early-termination cascade) is a `cond`, the counterpart of
+``jax.lax.cond``: eagerly it reads the predicate and calls one branch; in a
+capture's warm-up (and under `tracing`, on any device) it calls both and
+merges them with ``torch.where``, so that the warm-up builds every table
+either branch reads; in a capture each branch becomes the body of a
+conditional node that the replay runs when its predicate holds, read on
+the card.  So a function with branches is one graph, replayed with no host
+read.  A ``lazy_jit(bucket=...)`` entry point rewrites its arguments before
+they are keyed (a processor without its RNTI, the RNTI's scrambling
+sequence a traced argument), so that the calls it maps together share a
+graph.
 
 The graphs of a device share one memory pool.  A graph's intermediates are
 dead once its replay has returned, and so are its outputs once they are
@@ -44,14 +51,20 @@ those sequences so that their cache does not drop them while it lives.
 
 The kernel wrappers' launch counters (`count_launches`) count what one
 execution of a call launches: a replay adds the launches its graph
-captured, and the warm-up and the capture add nothing.
+captured outside its conditional bodies, and the warm-up and the capture
+add nothing.  A body that launches a counted kernel adds one to a counter
+on the card each time a replay runs it; `fold_launches` reads those (one
+read for all graphs) and adds each body's launches as many times as it
+ran, so the counters equal an eager run's once they are folded.
 """
 
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import functools
 import inspect
+import sys
 import threading
 import time
 from collections import Counter, OrderedDict
@@ -68,8 +81,9 @@ _COUNTERS: list = []
 _LOCAL = threading.local()
 _NUMBER_DTYPES = {bool: torch.bool, int: torch.int64, float: torch.float32,
                   complex: torch.complex64}
-# captures made, their host time and the pool's growth in MB, replays made
-STATS = {"captures": 0, "capture_ms": 0.0, "pool_mb": 0.0, "replays": 0}
+# captures made, their host time and the pool's growth in MB, replays made,
+# conditional nodes captured
+STATS = {"captures": 0, "capture_ms": 0.0, "pool_mb": 0.0, "replays": 0, "conds": 0}
 
 
 def _inside() -> bool:
@@ -189,24 +203,224 @@ def _captured_launches(run):
     return out, tuple(y - x for x, y in zip(before, after))
 
 
-def _replayed_launches(launches):
+def _replayed_launches(launches, times: int = 1):
     for (o, a), n in zip(_COUNTERS, launches):
         if not n:
             continue
         if isinstance(n, Counter):
-            getattr(o, a).update(n)
+            getattr(o, a).update({k: v * times for k, v in n.items()})
         else:
-            setattr(o, a, getattr(o, a) + n)
+            setattr(o, a, getattr(o, a) + n * times)
+
+
+def fold_launches():
+    """Add to the launch counters the launches of the conditional bodies
+    that replays ran since the last fold: one read of the card per device
+    (after the replays on the current stream)."""
+    _fold(list(_GRAPHS.values()))
+
+
+def _fold(graphs):
+    by_device: dict = {}
+    for g in graphs:
+        if g.bodies:
+            by_device.setdefault(g.counts.device, []).append(g)
+    for group in by_device.values():
+        runs = torch.cat([g.counts[:len(g.bodies)] for g in group]).tolist()
+        for launches, n in zip((b for g in group for b in g.bodies), runs):
+            if n:
+                _replayed_launches(launches, n)
+        torch._foreach_zero_([g.counts for g in group])
+
+
+# -- conditionals ----------------------------------------------------------------
+
+@contextlib.contextmanager
+def tracing():
+    """Within, on this thread: every `cond` calls both branches and merges
+    their outputs with ``torch.where``, reading nothing back (how a
+    capture's warm-up runs a function, and how the CPU tests run it as its
+    graph would)."""
+    before = getattr(_LOCAL, "tracing", False)
+    _LOCAL.tracing = True
+    try:
+        yield
+    finally:
+        _LOCAL.tracing = before
+
+
+def cond(pred, true_fn, false_fn, *operands):
+    """``jax.lax.cond``: ``true_fn(*operands)`` where the 0-d bool tensor
+    `pred` holds, else ``false_fn(*operands)``.  Both branches return the
+    same tree of tensors, of the same shapes and dtypes.
+
+    Eagerly it reads `pred` once and calls one branch.  Under `tracing` (a
+    capture's warm-up) it calls both and merges them leaf by leaf.  In a
+    capture each branch is the body of a conditional node, one on `pred`
+    and one on its negation: the first body copies its outputs into fresh
+    tensors and the second writes its own into them, so the replay runs
+    one branch and reads nothing back.  A body may hold kernels and copies
+    on the card only; conds nest."""
+    at = sys._getframe(1)
+    if getattr(_LOCAL, "conditional", None) is not None:  # `_capture` is capturing
+        return _cond_capture(pred, true_fn, false_fn, operands, at)
+    if getattr(_LOCAL, "tracing", False):
+        _LOCAL.conds = getattr(_LOCAL, "conds", 0) + 1
+        t, f = true_fn(*operands), false_fn(*operands)
+        (lt, struct), (lf, _) = _branch_leaves(t, f, at)
+        return _unflatten(struct, iter([torch.where(pred, a, b) if isinstance(a, torch.Tensor)
+                                        else a for a, b in zip(lt, lf)]))
+    return true_fn(*operands) if bool(pred) else false_fn(*operands)
+
+
+def _where(at) -> str:
+    return f"jit.cond at {at.f_code.co_filename}:{at.f_lineno} ({at.f_code.co_name})"
+
+
+def _branch_leaves(t, f, at):
+    """((leaves, structure) of each branch's output); raises, naming the
+    cond, where the two differ in structure, shape, dtype or device."""
+    lt, lf = [], []
+    st, sf = _flatten(t, lt), _flatten(f, lf)
+    if st != sf:
+        raise ValueError(f"{_where(at)}: the branches return different structures: "
+                         f"{st} and {sf}")
+    for i, (a, b) in enumerate(zip(lt, lf)):
+        if isinstance(a, torch.Tensor) != isinstance(b, torch.Tensor):
+            raise ValueError(f"{_where(at)}: output {i} is a tensor in one branch only")
+        if isinstance(a, torch.Tensor):
+            if (a.shape, a.dtype, a.device) != (b.shape, b.dtype, b.device):
+                raise ValueError(f"{_where(at)}: output {i} differs between the branches: "
+                                 f"{tuple(a.shape)} {a.dtype} {a.device} and "
+                                 f"{tuple(b.shape)} {b.dtype} {b.device}")
+        elif a is not b and a != b:
+            raise ValueError(f"{_where(at)}: output {i} differs between the branches: "
+                             f"{a!r} and {b!r}")
+    return (lt, st), (lf, sf)
+
+
+class _Conditional:
+    """The graph `_capture` is capturing, as `cond` builds conditional nodes
+    in it (`csrc/graph_cond.cu`): the stack of the streams being captured
+    (the capture's side stream, then one stream per nested body), the
+    graphs' memory pool, to which each body's allocations are routed, and
+    the bodies' replay counts.  Those live outside the pool, which lends
+    memory to one capture's tensors in turn: `counts` [room] int64, made
+    before the capture; `bodies`, the launches of each counted body."""
+
+    launches = 0  # the one-thread kernels that set the handles, as a kernel wrapper's
+
+    def __init__(self, stream, device, pool, mode, counts):
+        self.device, self.pool, self.mode = device, pool, mode
+        self.streams = [stream]
+        self.contexts = []
+        self.counts, self.bodies = counts, []
+
+    def _route(self, stream):
+        """Allocations on `stream` (only) go to the pool from now on."""
+        torch._C._cuda_endAllocateToPool(self.device.index, self.pool)
+        with torch.cuda.stream(stream):
+            torch._C._cuda_beginAllocateCurrentStreamToPool(self.device.index, self.pool)
+
+    def begin_if(self, pred, negate: bool):
+        """Capture what follows into the body of an IF node on `pred` (a
+        bool on the card; `negate`: on its negation)."""
+        lib = _cond_lib()
+        body = _body_stream(self.device, len(self.streams))
+        err = lib.cond_begin_if(self.streams[-1].cuda_stream, pred.data_ptr(), int(negate),
+                                body.cuda_stream, lib.cond_capture_mode(self.mode.encode()))
+        if err:
+            raise RuntimeError(f"a conditional node could not be captured: CUDA error {err}")
+        _Conditional.launches += 1
+        self._route(body)
+        self.streams.append(body)
+        ctx = torch.cuda.stream(body)
+        ctx.__enter__()
+        self.contexts.append(ctx)
+
+    def end_if(self):
+        body = self.streams.pop()
+        self.contexts.pop().__exit__(None, None, None)
+        err = _cond_lib().cond_end_if(body.cuda_stream)
+        self._route(self.streams[-1])
+        if err:
+            raise RuntimeError(f"a conditional body could not be captured: CUDA error {err}")
+
+
+count_launches(_Conditional, "launches")
+
+
+@functools.lru_cache(maxsize=None)
+def _cond_lib() -> ctypes.CDLL:
+    """`csrc/graph_cond.cu`, built at first use."""
+    from ..ops import _build
+
+    lib = _build.load("graph_cond")
+    lib.cond_begin_if.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                                  ctypes.c_void_p, ctypes.c_int]
+    lib.cond_end_if.argtypes = [ctypes.c_void_p]
+    lib.cond_capture_mode.argtypes = [ctypes.c_char_p]
+    for fn in (lib.cond_begin_if, lib.cond_end_if, lib.cond_capture_mode):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _body_stream(device, depth: int) -> torch.cuda.Stream:
+    """The stream captured into the bodies at nesting depth `depth`."""
+    s = BODY_STREAMS.get((device, depth))
+    if s is None:
+        s = BODY_STREAMS[(device, depth)] = torch.cuda.Stream(device)
+    return s
+
+
+BODY_STREAMS: dict = {}  # (device, nesting depth) -> the stream of those bodies
+
+
+def _cond_capture(pred, true_fn, false_fn, operands, at):
+    """`cond` while a graph is captured: two conditional nodes."""
+    graph = _LOCAL.conditional
+    pred = pred.reshape(()).to(torch.bool)
+    for first, fn in ((True, true_fn), (False, false_fn)):
+        graph.begin_if(pred, negate=not first)  # its kernel runs outside the body
+        before = [_copy(getattr(o, a)) for o, a in _COUNTERS]
+        try:
+            out = fn(*operands)
+            if first:
+                leaves = []
+                struct = _flatten(out, leaves)
+                outs = [x.clone() if isinstance(x, torch.Tensor) else x for x in leaves]
+            else:
+                (dst, _), (src, _) = _branch_leaves(_unflatten(struct, iter(outs)), out, at)
+                for d, x in zip(dst, src):
+                    if isinstance(d, torch.Tensor):
+                        d.copy_(x)
+            after = [getattr(o, a) for o, a in _COUNTERS]
+            launches = tuple(y - x for x, y in zip(before, after))
+            if any(launches):
+                if graph.counts is None or len(graph.bodies) >= len(graph.counts):
+                    raise RuntimeError(f"{_where(at)}: more conditional bodies captured than "
+                                       "the warm-up ran")
+                graph.counts[len(graph.bodies)].add_(1)
+                graph.bodies.append(launches)
+        finally:
+            graph.end_if()
+            for (o, a), v in zip(_COUNTERS, before):
+                setattr(o, a, v)
+    STATS["conds"] += 1
+    return _unflatten(struct, iter(outs))
 
 
 # -- graphs --------------------------------------------------------------------
 
 class _Graph:
     """One captured call: its graph, static inputs and outputs, the device
-    tables it holds, the launches it makes and its memory."""
+    tables it holds, the launches it makes (outside its conditional
+    bodies; `bodies`: the launches of each body that launches a counted
+    kernel, `counts`: on the card, the replays that ran each since the last
+    fold) and its memory."""
 
     def __init__(self, site, graph, inputs, out_struct, outputs, held, pinned, launches,
-                 nbytes, capture_ms):
+                 nbytes, capture_ms, bodies=(), counts=None):
         self.site = site
         self.capture_ms = capture_ms
         self.graph = graph
@@ -216,6 +430,7 @@ class _Graph:
         self.held = held  # the table and sequence tensors the capture read
         self.pinned = pinned
         self.launches = launches
+        self.bodies, self.counts = bodies, counts
         self.nbytes = nbytes
 
     def __call__(self, traced):
@@ -227,6 +442,7 @@ class _Graph:
         return _unflatten(self.out_struct, iter([_fresh(t) for t in self.outputs]))
 
     def release(self):
+        _fold([self])
         _device.unpin(self.pinned)
         self.graph.reset()
 
@@ -253,13 +469,21 @@ def _capture(site, key, call_with, traced, device) -> _Graph:
     main = torch.cuda.current_stream(device)
     side = _side_stream(device)
     side.wait_stream(main)
-    with _nested(), torch.cuda.stream(side):
+    _LOCAL.conds = 0
+    with _nested(), tracing(), torch.cuda.stream(side):
         _captured_launches(lambda: call_with(inputs))
+    counts = None
+    if _LOCAL.conds:  # the binding, and room for a replay count per body
+        _cond_lib()
+        counts = torch.zeros(2 * _LOCAL.conds, dtype=torch.int64, device=device)
     torch.cuda.synchronize(device)
     reserved = torch.cuda.memory_reserved(device)
     graph = torch.cuda.CUDAGraph()
 
+    conditional = _Conditional(side, device, _pool(device), "thread_local", counts)
+
     def capture():
+        _LOCAL.conditional = conditional
         with _nested(), _device.recording() as used, torch.cuda.stream(side):
             graph.capture_begin(pool=_pool(device), capture_error_mode="thread_local")
             try:
@@ -268,6 +492,8 @@ def _capture(site, key, call_with, traced, device) -> _Graph:
                 with contextlib.suppress(Exception):
                     graph.capture_end()
                 raise
+            finally:
+                _LOCAL.conditional = None
             graph.capture_end()
         return out, used
 
@@ -286,7 +512,8 @@ def _capture(site, key, call_with, traced, device) -> _Graph:
     _device.pin(pinned)
     ms = (time.perf_counter() - t0) * 1e3
     g = _Graph(site.name, graph, inputs, out_struct, leaves,
-               tuple(t for _, t in read.values()), pinned, launches, nbytes, ms)
+               tuple(t for _, t in read.values()), pinned, launches, nbytes, ms,
+               tuple(conditional.bodies), counts)
     STATS["captures"] += 1
     STATS["capture_ms"] += ms
     STATS["pool_mb"] += grown / 1e6
@@ -341,7 +568,7 @@ class _Site:
     """A wrapped function's signature split into static and traced
     arguments."""
 
-    def __init__(self, fn, static_argnums, static_argnames, segmented):
+    def __init__(self, fn, static_argnums, static_argnames, bucket):
         self.fn = fn
         self.name = f"{fn.__module__}.{fn.__qualname__}"
         self.sig = inspect.signature(fn)
@@ -350,11 +577,15 @@ class _Site:
         unknown = self.static - set(names)
         if unknown:
             raise TypeError(f"{self.name} has no arguments {sorted(unknown)}")
-        self.segmented = segmented
+        self.bucket = bucket
 
-    def bind(self, args, kwargs) -> inspect.BoundArguments:
+    def bind(self, args, kwargs, graphed=False) -> inspect.BoundArguments:
+        """The call's arguments; `graphed`: as its graph takes them (after
+        `bucket`)."""
         ba = self.sig.bind(*args, **kwargs)
         ba.apply_defaults()
+        if graphed and self.bucket is not None:
+            self.bucket(ba.arguments, self.device(ba))
         return ba
 
     def split(self, ba):
@@ -379,10 +610,12 @@ class _Site:
                             f"hashable: {e}") from e
         return key
 
-    def device(self, ba, leaves) -> torch.device:
+    def device(self, ba, leaves=None) -> torch.device:
         """The device of the call: its first tensor argument's (`leaves`:
         the leaves of `split`), else its ``device=`` argument's (None: the
         CUDA device)."""
+        if leaves is None:
+            leaves = self.split(ba)[1]
         for x in leaves:
             if isinstance(x, torch.Tensor):
                 return x.device
@@ -411,8 +644,11 @@ class _Site:
         ba = self.bind(args, kwargs)
         static, leaves, struct = self.split(ba)
         device = self.device(ba, leaves)
-        if device.type != "cuda" or self.segmented or _inside():
+        if device.type != "cuda" or _inside():
             return self.fn(*args, **kwargs)
+        if self.bucket is not None:
+            self.bucket(ba.arguments, device)
+            static, leaves, struct = self.split(ba)
         key = self._key(static, leaves, struct)
         pos = [i for i, x in enumerate(leaves) if _is_traced(x)]
         traced = [leaves[i] for i in pos]
@@ -432,12 +668,12 @@ class _Site:
         return g(traced)
 
 
-def _decorate(fn, static_argnums, static_argnames, segmented, kind):
+def _decorate(fn, static_argnums, static_argnames, bucket, kind):
     if isinstance(static_argnums, int):
         static_argnums = (static_argnums,)
     if isinstance(static_argnames, str):
         static_argnames = (static_argnames,)
-    site = _Site(fn, tuple(static_argnums), tuple(static_argnames), segmented)
+    site = _Site(fn, tuple(static_argnums), tuple(static_argnames), bucket)
 
     @functools.wraps(fn)
     def wrapper(*args, **kwargs):
@@ -456,28 +692,31 @@ def _decorate(fn, static_argnums, static_argnames, segmented, kind):
     return wrapper
 
 
-def lazy_jit(fn=None, *, static_argnums=(), static_argnames=(), segmented=False):
+def lazy_jit(fn=None, *, static_argnums=(), static_argnames=(), bucket=None):
     """Decorator: an entry point that replays one CUDA graph per key (see
-    the module docstring); ``segmented=True`` for one whose stages are the
-    graphs."""
+    the module docstring).  ``bucket(arguments, device)``, where given,
+    rewrites a graphed call's bound arguments (a dict, in place) before
+    they are keyed: it may put a coarser static argument in place of one,
+    moving what that drops into a traced argument."""
     if fn is None:
         return lambda f: lazy_jit(f, static_argnums=static_argnums,
-                                  static_argnames=static_argnames, segmented=segmented)
-    return _decorate(fn, static_argnums, static_argnames, segmented, "entry")
+                                  static_argnames=static_argnames, bucket=bucket)
+    return _decorate(fn, static_argnums, static_argnames, bucket, "entry")
 
 
 def stage(fn=None, *, static_argnums=(), static_argnames=()):
-    """Decorator: a stage of a segmented entry point, graphed as `lazy_jit`
-    graphs an entry point."""
+    """Decorator: a function that the package calls outside its entry
+    points as well (the DL-SCH decoder under the UL and sidelink paths),
+    graphed as `lazy_jit` graphs an entry point."""
     if fn is None:
         return lambda f: stage(f, static_argnums=static_argnums, static_argnames=static_argnames)
-    return _decorate(fn, static_argnums, static_argnames, False, "stage")
+    return _decorate(fn, static_argnums, static_argnames, None, "stage")
 
 
 def graph_key(fn, *args, **kwargs):
     """The key a call of the wrapped `fn` would replay under."""
     site = fn.jit_site
-    return site.key(site.bind(args, kwargs))
+    return site.key(site.bind(args, kwargs, graphed=True))
 
 
 def traced_args(fn, *args, **kwargs):
@@ -485,5 +724,5 @@ def traced_args(fn, *args, **kwargs):
     captured: every traced argument a tensor on the call's device (for
     tests on the CPU, through ``fn.__wrapped__``)."""
     site = fn.jit_site
-    b = site.traced(site.bind(args, kwargs))
+    b = site.traced(site.bind(args, kwargs, graphed=True))
     return b.args, b.kwargs

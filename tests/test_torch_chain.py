@@ -184,6 +184,27 @@ def test_enb_encode_and_ofdm(n_prb):
               np.asarray(jtdd.put_pss_sss(jtdd.empty_grids(), sf)), scale=1.0)
 
 
+@pytest.mark.parametrize("normalize", [False, True])
+def test_ofdm_tx_rx_one_call(normalize):
+    """`ofdm_tx` and `ofdm_rx` (one call each, the modem built inside) on
+    one 6 PRB subframe against the reference's, within `close`."""
+    from srslte_tpu.phy.ofdm import ofdm_rx as j_ofdm_rx
+    from srslte_tpu.phy.ofdm import ofdm_tx as j_ofdm_tx
+    from srslte_tpu_torch.phy.ofdm import ofdm_rx, ofdm_tx
+
+    rng = np.random.default_rng(6)
+    jp, tp = j_params.OfdmParams(6), t_params.OfdmParams(6)
+    grid = (rng.standard_normal((tp.nsymb_sf, tp.nof_re))
+            + 1j * rng.standard_normal((tp.nsymb_sf, tp.nof_re))).astype(np.complex64)
+    s_ref = np.asarray(j_ofdm_tx(jp, jnp.asarray(grid), normalize=normalize))
+    s = ofdm_tx(tp, grid, device=CPU, normalize=normalize)
+    assert s.shape == (tp.sf_len,) and s.dtype == torch.complex64
+    close(s, s_ref)
+    g = ofdm_rx(tp, s_ref, device=CPU, normalize=normalize)
+    close(g, np.asarray(j_ofdm_rx(jp, jnp.asarray(s_ref), normalize=normalize)))
+    close(g, grid * (1.0 if normalize else tp.symbol_sz))
+
+
 @pytest.mark.parametrize("n_prb", [6, 25])
 def test_chest_dl(n_prb):
     j, t = sides(n_prb)

@@ -30,6 +30,7 @@ import srslte_tpu_torch.phy.phch.dlsch as t_dlsch
 from srslte_tpu_torch import convert
 from srslte_tpu_torch._device import default_device
 from srslte_tpu_torch.ops import tdec_cuda, viterbi_cuda
+from srslte_tpu_torch.utils import jit
 
 CPU = "cpu"
 torch.set_num_threads(1)  # several test workers share the machine's cores
@@ -454,6 +455,21 @@ def test_crc_ok_device():
     assert t_crc.crc_ok_device(big, pa, oa, device=CPU).all()
 
 
+@pytest.mark.parametrize("length", [1, 16, 35, 100])
+def test_crc12(length):
+    """`LTE_CRC12` through `crc_bits` and `crc_ok_device`, bit-exact with
+    the reference's."""
+    assert t_crc.LTE_CRC12 == j_crc.LTE_CRC12
+    rng = np.random.default_rng(length)
+    msg = rng.integers(0, 2, (4, length)).astype(np.uint8)
+    got = t_crc.crc_bits(msg, *t_crc.LTE_CRC12)
+    np.testing.assert_array_equal(got, j_crc.crc_bits(msg, *j_crc.LTE_CRC12))
+    cw = np.concatenate([msg, got], -1)
+    cw[1, 0] ^= 1
+    ok = t_crc.crc_ok_device(cw, *t_crc.LTE_CRC12, device=CPU).numpy()
+    np.testing.assert_array_equal(ok, [True, False, True, True])
+
+
 # ------------------------------------------------------------ convolutional
 def test_conv_encode_and_rate_matching():
     rng = np.random.default_rng(2)
@@ -561,18 +577,24 @@ CASCADE_CASES = {
 }
 
 
-@pytest.mark.parametrize("branch", list(CASCADE_CASES))
-def test_dlsch_decode_cascade(branch, monkeypatch):
-    """Every branch of the CRC-gated cascade (host branches on counts in the
-    port, `lax.cond` on traced counts in the reference): the same CRC flags,
-    and the same bits wherever the CRC passes.  The branch taken is read off
-    the (batch, iterations) trace of the port's turbo_step calls."""
-    mix, want_trace = CASCADE_CASES[branch]
-    bits, llr, need = cascade_pool()
+def cascade_rows(branch, need):
+    """The pool rows of one mix of CASCADE_CASES, drawn by its name."""
     rng = np.random.default_rng(len(branch))
     rows = np.concatenate([rng.choice(np.flatnonzero(need == n), c, replace=False)
-                           for n, c in mix.items()])
-    rows = rng.permutation(rows)
+                           for n, c in CASCADE_CASES[branch][0].items()])
+    return rng.permutation(rows)
+
+
+@pytest.mark.parametrize("branch", list(CASCADE_CASES))
+def test_dlsch_decode_cascade(branch, monkeypatch):
+    """Every branch of the CRC-gated cascade (`jit.cond` on counts in the
+    port, eagerly one branch, `lax.cond` on traced counts in the reference):
+    the same CRC flags, and the same bits wherever the CRC passes.  The
+    branch taken is read off the (batch, iterations) trace of the port's
+    turbo_step calls."""
+    mix, want_trace = CASCADE_CASES[branch]
+    bits, llr, need = cascade_pool()
+    rows = cascade_rows(branch, need)
     assert len(rows) == CASCADE_N
 
     trace = []
@@ -594,6 +616,35 @@ def test_dlsch_decode_cascade(branch, monkeypatch):
     np.testing.assert_array_equal(got_bits.numpy()[ref_ok], ref_bits[ref_ok])
     np.testing.assert_array_equal(got_bits.numpy()[ref_ok], bits[rows][ref_ok])
     assert got_bits.dtype == torch.uint8 and got_ok.dtype == torch.bool
+
+
+@pytest.mark.parametrize("branch", list(CASCADE_CASES))
+def test_dlsch_decode_cascade_traced(branch, monkeypatch):
+    """The cascade as its CUDA graph runs it: every `jit.cond` under
+    `jit.tracing` (both branches, merged by the predicate).  CRC flags and
+    bits equal the eager port's and the reference's jitted `dlsch_decode`'s
+    (bits wherever the CRC passes); every branch ran."""
+    bits, llr, need = cascade_pool()
+    x = llr[cascade_rows(branch, need)]
+    cfg = t_dlsch.DlschConfig(**CASCADE_CFG)
+    trace = []
+    real_step = t_tdec.turbo_step
+
+    def logged_step(st, k, n_iter, *a, **kw):
+        trace.append((st.sys.shape[0], n_iter))
+        return real_step(st, k, n_iter, *a, **kw)
+
+    monkeypatch.setattr(t_dlsch.tdec, "turbo_step", logged_step)
+    with jit.tracing():
+        got_bits, got_ok = t_dlsch.dlsch_decode(x, cfg, n_iter=5, device=CPU)
+    assert sorted(trace) == sorted([(N_, 1), (N_, 1), (CAP, 1), (CAP2, 2), (CAP, 2), (N_, 3)])
+    monkeypatch.undo()
+    eager_bits, eager_ok = t_dlsch.dlsch_decode(x, cfg, n_iter=5, device=CPU)
+    np.testing.assert_array_equal(got_ok.numpy(), eager_ok.numpy())
+    np.testing.assert_array_equal(got_bits.numpy(), eager_bits.numpy())
+    ref_bits, ref_ok = (np.asarray(a) for a in j_dlsch_decode()(jnp.asarray(x)))
+    np.testing.assert_array_equal(got_ok.numpy(), ref_ok)
+    np.testing.assert_array_equal(got_bits.numpy()[ref_ok], ref_bits[ref_ok])
 
 
 @pytest.mark.parametrize("tbs,G,Qm,snr_db", [(6200, 14400, 4, 1.0), (208, 480, 2, 3.0)])

@@ -2,16 +2,23 @@
 
 (a) the port wraps the counterpart of every `lazy_jit` site of the JAX
 package (read from its sources as text), with the same static arguments;
-(b) each wrapped function, and each stage of the segmented ones, run eagerly
-with its traced arguments as the graph takes them (tensors), reads nothing
-back to the host, makes no tensor of host data once its tables are built,
-and meets no operation whose output shape depends on the data: what a CUDA
-graph cannot hold; (c) the graph keys; (d) `_device.sequence` keeps the
-tensors a graph pins; the launch counters' bookkeeping; `utils/boundary.py`
-against the JAX package's.  6 PRB LTE cells and a 24 PRB NR carrier.
+(b) each wrapped function, run as its graph would run it (its traced
+arguments as tensors, every `jit.cond` under `jit.tracing`: both branches,
+merged), reads nothing back to the host, makes no tensor of host data once
+its tables are built, meets no operation whose output shape depends on the
+data, changes none of its arguments and equals the eager call: what a CUDA
+graph cannot hold; `dlsch_decode` so on each mix of the cascade's branches;
+(c) the graph keys; `jit.cond` eagerly, traced and as a capture builds its
+conditional bodies (with a stand-in for the card's nodes); (d)
+`_device.sequence` keeps the tensors a graph pins; the launch counters'
+bookkeeping and the bodies' fold; the graph cache's eviction;
+`utils/boundary.py` against the JAX package's.  6 PRB LTE cells and a 24
+PRB NR carrier.
 """
 
 import ast
+import contextlib
+import dataclasses
 import importlib
 import traceback
 from collections import Counter
@@ -45,6 +52,8 @@ from srslte_tpu_torch.phy.ue.ue_dl import UeDl
 from srslte_tpu_torch.phy.ue.ue_mib import UeMib
 from srslte_tpu_torch.utils import jit
 
+import test_torch_fec as fec  # its DL-SCH cascade pool and mixes
+
 torch.set_num_threads(1)  # several test workers share the machine's cores
 ROOT = Path(__file__).resolve().parent.parent
 CELL = Cell(n_prb=6, id=7)
@@ -52,6 +61,15 @@ SF_LEN = CELL.ofdm.sf_len
 
 
 # -- (a) the sites ---------------------------------------------------------------
+
+def literal(node):
+    """A decorator argument's value, or its source where it is no literal
+    (a function)."""
+    try:
+        return ast.literal_eval(node)
+    except ValueError:
+        return ast.unparse(node)
+
 
 def decorated_sites(package: str, decorator: str = "lazy_jit") -> dict:
     """{(module path in the package, qualified name): the decorator's
@@ -71,7 +89,7 @@ def decorated_sites(package: str, decorator: str = "lazy_jit") -> dict:
                         name = call.func if call else d
                         if isinstance(name, ast.Name) and name.id == decorator:
                             sites[(rel, prefix + child.name)] = {
-                                k.arg: ast.literal_eval(k.value) for k in call.keywords
+                                k.arg: literal(k.value) for k in call.keywords
                             } if call else {}
 
         visit(ast.parse(path.read_text()), "")
@@ -110,12 +128,14 @@ def test_wrapped_sites_are_the_jax_packages():
     port_sites = decorated_sites("srslte_tpu_torch")
     assert set(port_sites) <= set(want)
     for k, v in port_sites.items():
-        assert {a: v[a] for a in v if a != "segmented"} == want[k], k
-    # the entry points whose device work is split by host reads
-    segmented = {k for k, v in port_sites.items() if v.get("segmented")}
-    assert segmented == {("phy/phch/pdsch.py", "Pdsch.decode"),
-                         ("phy/phch/pdsch.py", "PdschSm.decode2"),
-                         ("phy/phch/pmch.py", "Pmch.decode")}
+        # `bucket` (the PDSCH decoders' RNTI as an input) keys no static argument
+        assert {a: v[a] for a in v if a != "bucket"} == want[k], k
+    # every site is one graph per call: none is split into stages
+    assert not any("segmented" in v for v in port_sites.values())
+    assert all(not hasattr(port_object(*MERGED.get(k, k)).jit_site, "segmented")
+               for k in jax_sites)
+    assert {k for k, v in port_sites.items() if "bucket" in v} == {
+        ("phy/phch/pdsch.py", "Pdsch.decode"), ("phy/phch/pdsch.py", "PdschSm.decode2")}
 
 
 # -- (b) no host read, no upload, no data-dependent shape ---------------------------
@@ -202,35 +222,16 @@ def lte_grid(rng, cell, *lead):
     return rng_c(rng, *lead, o.nsymb_sf, o.nof_re)
 
 
-def cascade_inputs():
-    """A two-block DL-SCH bucket (K 3008, windowed) at a noise where phase
-    1 leaves failures, and the states each stage takes."""
-    cfg = t_dlsch.DlschConfig(tbs=6000, G=14400, Qm=2)
-    rng = np.random.default_rng(5)
-    bits = rng.integers(0, 2, (4, cfg.tbs)).astype(np.uint8)
-    coded = t_dlsch.dlsch_encode(bits, cfg, device="cpu").numpy()
-    llr = torch.from_numpy(((1 - 2.0 * coded) * -2.0 + 2.2 * rng.standard_normal(coded.shape))
-                           .astype(np.float32))
-    front = t_dlsch.cascade_front(llr, cfg, 5)
-    hard, st = front.hard[0], front.state[0]
-    hard2, st2, ok2, _ = t_dlsch._phase2.__wrapped__(hard, st, cfg, 0, 5, 1, 8)
-    hard3, st3, ok3, idx, _ = t_dlsch._phase3.__wrapped__(hard2, st2, ok2, cfg, 0, 8)
-    return dict(cfg=cfg, llr=llr, front=front, hard2=hard2, st2=st2, ok2=ok2, hard3=hard3,
-                st3=st3, ok3=ok3, idx=idx)
-
-
 def pdsch_case(rng):
     p = Pdsch(CELL, DlGrant.full(6, 9), 4, cfi=2, rnti=0x46)
-    return p._decode_front, (p.bucket, lte_grid(rng, CELL, 2), lte_grid(rng, CELL, 2, 1), 0.3,
-                             p.descrambling(0, p.cfg.G, "cpu")), {}
+    return Pdsch.decode, (p, lte_grid(rng, CELL, 2), lte_grid(rng, CELL, 2, 1), 0.3), {}
 
 
 def sm_case(rng, cls, ports, rnti=0x46):
     cell = Cell(n_prb=6, id=3, nof_ports=ports)
     p = cls(cell, DlGrant.full(6, 10), 4, cfi=2, rnti=rnti, pmi=0)
-    return (p.bucket, lte_grid(rng, cell, 2, ports), rng_c(rng, 2, ports, ports,
-                                                           cell.ofdm.nsymb_sf, cell.ofdm.nof_re),
-            0.1, p._scrs(None, "cpu"))
+    return (p, lte_grid(rng, cell, 2, ports), rng_c(rng, 2, ports, ports, cell.ofdm.nsymb_sf,
+                                                     cell.ofdm.nof_re), 0.1)
 
 
 def sm_encode(rng, cls, ports):
@@ -243,8 +244,7 @@ def sm_encode(rng, cls, ports):
 
 def pmch_case(rng):
     cell = Cell(n_prb=6, id=5, cp=CP.EXT)
-    return Pmch._decode_front, (Pmch(cell, area_id=1, sf_idx=3, mcs=8),
-                                lte_grid(rng, cell, 2)), {}
+    return Pmch.decode, (Pmch(cell, area_id=1, sf_idx=3, mcs=8), lte_grid(rng, cell, 2)), {}
 
 
 def nr_case(rng, method):
@@ -254,18 +254,12 @@ def nr_case(rng, method):
     return getattr(NrPdsch, method), (p, rng_c(rng, 2, 14, p.carrier.nof_re)), {}
 
 
-def cascade_case(stage):
-    c = cascade_inputs()
-    cfg, front = c["cfg"], c["front"]
-    return {
-        "_front": (t_dlsch._front, (c["llr"], cfg, 5), {}),
-        "_phase2": (t_dlsch._phase2, (front.hard[0], front.state[0], cfg, 0, 5, 1, 8), {}),
-        "_more": (t_dlsch._more, (c["st2"], cfg, 0, 3), {}),
-        "_phase3": (t_dlsch._phase3, (c["hard2"], c["st2"], c["ok2"], cfg, 0, 8), {}),
-        "_phase3b": (t_dlsch._phase3b, (c["hard3"], c["st3"], c["ok3"], cfg, 0, 2), {}),
-        "_merged": (t_dlsch._merged, (c["hard2"], c["ok2"], c["idx"], c["hard3"]), {}),
-        "_tail": (t_dlsch._tail, (front.hard, cfg, front.batch), {}),
-    }[stage]
+def dlsch_case(mix):
+    """`dlsch_decode` on one mix of test_torch_fec.py's cascade pool: 64 TBs
+    of one K 512 code block, whose branches the mix picks."""
+    bits, llr, need = fec.cascade_pool()
+    return t_dlsch.dlsch_decode, (torch.from_numpy(llr[fec.cascade_rows(mix, need)]),
+                                  t_dlsch.DlschConfig(**fec.CASCADE_CFG)), {}
 
 
 def stream(rng, n):
@@ -281,12 +275,12 @@ CASES = {
         Pdcch(CELL, 2, 4), lte_grid(r, CELL, 2), lte_grid(r, CELL, 2, 1),
         ((Location(0, 2), Location(2, 2)), (Location(0, 4),)), 27, rnti_mask_t(0x46, "cpu")),
         {}),
-    "Pdsch._decode_front": pdsch_case,
+    "Pdsch.decode": pdsch_case,
     "PdschSm.encode2": lambda r: sm_encode(r, PdschSm, 2),
-    "PdschSm._decode2_front": lambda r: (PdschSm._decode2_front, sm_case(r, PdschSm, 2), {}),
+    "PdschSm.decode2": lambda r: (PdschSm.decode2, sm_case(r, PdschSm, 2), {}),
     "PdschSm4.encode2": lambda r: sm_encode(r, PdschSm4, 4),
-    "PdschSm4._decode2_front": lambda r: (PdschSm4._decode2_front, sm_case(r, PdschSm4, 4), {}),
-    "Pmch._decode_front": pmch_case,
+    "PdschSm4.decode2": lambda r: (PdschSm4.decode2, sm_case(r, PdschSm4, 4), {}),
+    "Pmch.decode": pmch_case,
     "NrPdsch.encode": lambda r: nr_case(r, "encode"),
     "NrPdsch.demod_llr": lambda r: nr_case(r, "demod_llr"),
     "NrPdsch.decode": lambda r: nr_case(r, "decode"),
@@ -304,9 +298,15 @@ CASES = {
     "cell_search": lambda r: (cell_search, (stream(r, 4 * 9600), OfdmParams(6)), {}),
     "IntraMeasure.measure": lambda r: (IntraMeasure.measure, (
         IntraMeasure(6, (7, 111)), rng_c(r, 2, SF_LEN), 2), {}),
-    **{f"dlsch.{s}": (lambda r, s=s: cascade_case(s))
-       for s in ("_front", "_phase2", "_more", "_phase3", "_phase3b", "_merged", "_tail")},
+    **{f"dlsch_decode {mix}": (lambda r, mix=mix: dlsch_case(mix)) for mix in fec.CASCADE_CASES},
 }
+
+
+def tree_clone(x):
+    leaves = []
+    struct = jit._flatten(x, leaves)
+    return jit._unflatten(struct, iter([v.clone() if isinstance(v, torch.Tensor) else v
+                                        for v in leaves]))
 
 
 def assert_same(a, b):
@@ -314,25 +314,31 @@ def assert_same(a, b):
     sa, sb = jit._flatten(a, la), jit._flatten(b, lb)
     assert sa == sb
     for x, y in zip(la, lb):
-        if isinstance(x, torch.Tensor):
-            np.testing.assert_array_equal(x.numpy(), y.numpy())
+        if isinstance(x, (torch.Tensor, np.ndarray)):
+            np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
         else:
             assert x == y
 
 
 @pytest.mark.parametrize("name", list(CASES))
 def test_no_graph_hazards(name):
-    """The call as its graph is captured (traced arguments as tensors) meets
-    no host read, no upload once its tables are built and no shape that
-    depends on the data, and equals the plain eager call."""
+    """The call as its graph is captured (traced arguments as tensors, the
+    `bucket` rewrite, both branches of every `jit.cond`) meets no host read,
+    no upload once its tables are built and no shape that depends on the
+    data, changes none of its arguments, and equals the plain eager call."""
     fn, args, kwargs = CASES[name](np.random.default_rng(len(name)))
-    assert fn.jit_kind in ("entry", "stage") and not fn.jit_site.segmented
+    assert fn.jit_kind in ("entry", "stage")
     targs, tkwargs = jit.traced_args(fn, *args, **kwargs)
-    fn.__wrapped__(*targs, **tkwargs)  # builds the tables
-    with GraphHazards() as mode:
-        got = fn.__wrapped__(*targs, **tkwargs)
+    before = [tree_clone(x) for x in (args, kwargs, targs, tkwargs)]
+    with jit.tracing():
+        fn.__wrapped__(*targs, **tkwargs)  # builds the tables both branches read
+        with GraphHazards() as mode:
+            got = fn.__wrapped__(*targs, **tkwargs)
     assert mode.found == {"read": [], "upload": [], "shape": []}
-    assert_same(got, fn.__wrapped__(*args, **kwargs))
+    eager = fn.__wrapped__(*args, **kwargs)
+    assert_same(got, eager)
+    for x, y in zip((args, kwargs, targs, tkwargs), before):
+        assert_same(x, y)
 
 
 def host_reads(run):
@@ -342,20 +348,238 @@ def host_reads(run):
     return out, mode.found
 
 
-def test_cascade_host_reads():
-    """`dlsch_decode` reads the host once on a batch whose blocks all pass
-    phase 1 and at most three times for one code block size; its branches
-    give the decoder's result."""
-    c = cascade_inputs()
-    cfg, llr = c["cfg"], c["llr"]
-    rng = np.random.default_rng(1)
-    bits = rng.integers(0, 2, (3, cfg.tbs)).astype(np.uint8)
-    clean = (1 - 2.0 * t_dlsch.dlsch_encode(bits, cfg, device="cpu").float()) * -8.0
-    (got, ok), found = host_reads(lambda: t_dlsch.dlsch_decode(clean, cfg))
-    assert [r.split()[0] for r in found["read"]] == ["tolist"] and not found["upload"] and not found["shape"]
-    assert ok.all() and (got.numpy() == bits).all()
-    _, found = host_reads(lambda: t_dlsch.dlsch_decode(llr, cfg))
-    assert 1 < len(found["read"]) <= 3 and not found["upload"] and not found["shape"]
+def bool_reads(found) -> int:
+    """The host reads of `found` that are a tensor's truth value."""
+    kinds = [r.split()[0] for r in found["read"]]
+    assert set(kinds) <= {"__bool__", "_local_scalar_dense"}, kinds
+    return kinds.count("__bool__")
+
+
+# the conds each mix's eager cascade evaluates (one host read each): phase
+# 1's; phase 2's nfail == 0; nfail <= cap; phase 3's nfail3 == 0; nfail3 <= cap2
+CASCADE_READS = {"all_pass_after_early": 1, "all_pass_after_second": 2,
+                 "compaction_then_clean": 4, "second_compaction": 5,
+                 "second_capacity_exceeded": 5, "full_batch_fallback": 3}
+
+
+@pytest.mark.parametrize("traced", [False, True])
+def test_cascade_host_reads(traced):
+    """`dlsch_decode` eagerly reads the host once per cond it takes (one
+    read on a batch whose blocks all pass phase 1); as its graph runs it
+    (`jit.tracing`) never.  Each mix's flags and bits are the same both
+    ways."""
+    cfg = t_dlsch.DlschConfig(**fec.CASCADE_CFG)
+    bits, llr, need = fec.cascade_pool()
+    for mix, reads in CASCADE_READS.items():
+        x = torch.from_numpy(llr[fec.cascade_rows(mix, need)])
+        with (jit.tracing() if traced else contextlib.nullcontext()):
+            (got, ok), found = host_reads(lambda: t_dlsch.dlsch_decode(x, cfg))
+        assert bool_reads(found) == (0 if traced else reads), mix
+        assert not found["upload"] and not found["shape"]
+        np.testing.assert_array_equal(ok.numpy(), need[fec.cascade_rows(mix, need)] <= 5)
+        sent = bits[fec.cascade_rows(mix, need)]
+        assert (got.numpy()[ok.numpy()] == sent[ok.numpy()]).all()
+
+
+# -- jit.cond ----------------------------------------------------------------------
+
+class Branch:
+    """A branch that counts its calls."""
+
+    def __init__(self, fn):
+        self.fn, self.calls = fn, 0
+
+    def __call__(self, *a):
+        self.calls += 1
+        return self.fn(*a)
+
+
+@pytest.mark.parametrize("value", [True, False])
+def test_cond_eager_calls_one_branch(value):
+    """Eagerly `cond` reads its predicate once and calls the branch it
+    picks, with the operands."""
+    x = torch.arange(6.0)
+    t, f = Branch(lambda a, b: (a * 2, {"n": b + 1})), Branch(lambda a, b: (a - 1, {"n": b}))
+    pred, three = torch.tensor(value), torch.tensor(3)
+    with GraphHazards() as mode:
+        out = jit.cond(pred, t, f, x, three)
+    assert bool_reads(mode.found) == 1
+    assert (t.calls, f.calls) == ((1, 0) if value else (0, 1))
+    assert_same(out, (x * 2, {"n": torch.tensor(4)}) if value else (x - 1, {"n": torch.tensor(3)}))
+
+
+@pytest.mark.parametrize("value", [True, False])
+def test_cond_traced_runs_both_and_merges(value):
+    """Under `tracing` both branches run and each output leaf is the picked
+    branch's, merged by the predicate with no host read."""
+    x = torch.arange(6.0)
+    t, f = Branch(lambda: (x * 2, x.to(torch.int64))), Branch(lambda: (x - 1, -x.to(torch.int64)))
+    pred = torch.tensor(value)
+    with jit.tracing(), GraphHazards() as mode:
+        out = jit.cond(pred, t, f)
+    assert mode.found == {"read": [], "upload": [], "shape": []}
+    assert (t.calls, f.calls) == (1, 1)
+    assert_same(out, (x * 2, x.to(torch.int64)) if value else (x - 1, -x.to(torch.int64)))
+
+
+def nested(x):
+    """Three branches by two nested conds on values the function computes."""
+    s = x.sum()
+    return jit.cond(s > 0, lambda: jit.cond(s > 10, lambda: x * 3, lambda: x * 2),
+                    lambda: (x - 1).abs())
+
+
+@pytest.mark.parametrize("value", [5.0, 1.0, -1.0])
+def test_cond_nested(value):
+    """Nested conds give the eager result traced, on every branch."""
+    x = torch.full((4,), value)
+    want = x * 3 if value > 2.5 else x * 2 if value > 0 else (x - 1).abs()
+    assert_same(nested(x), want)
+    with jit.tracing():
+        assert_same(nested(x), want)
+
+
+@pytest.mark.parametrize("false_out", [
+    lambda x: x[:2], lambda x: x.to(torch.float64), lambda x: (x,), lambda x: [x], lambda x: None])
+def test_cond_mismatch_raises(false_out):
+    """Branches whose outputs differ in structure, shape or dtype raise in
+    the traced mode (and in a capture), naming the cond's site."""
+    x = torch.arange(4.0)
+    with jit.tracing(), pytest.raises(ValueError, match=r"jit\.cond at .*test_torch_jit\.py"):
+        jit.cond(torch.tensor(True), lambda: x, lambda: false_out(x))
+
+
+class StandInNodes:
+    """`_Conditional`'s interface without a card: records the bodies begun
+    and ended (both bodies then run, one after the other, on the CPU)."""
+
+    def __init__(self, counts):
+        self.counts, self.bodies, self.log, self.depth = counts, [], [], 0
+
+    def begin_if(self, pred, negate):
+        jit._Conditional.launches += 1
+        self.depth += 1
+        self.log.append(("begin", self.depth, bool(pred) ^ negate))
+
+    def end_if(self):
+        self.log.append(("end", self.depth))
+        self.depth -= 1
+
+
+def test_cond_capture_bodies(monkeypatch):
+    """In a capture each branch is a body: nested bodies begin and end in
+    order, the second body writes its outputs into the first's (fresh
+    tensors, so an operand is never written), each body that launches a
+    counted kernel gets a replay count, and the graph's own launches leave
+    out those of its bodies (the handle kernels of the nested conds count
+    where they run)."""
+    class Kernel:
+        launches = 0
+
+    monkeypatch.setattr(jit, "_COUNTERS", [])
+    jit.count_launches(jit._Conditional, "launches")
+    jit.count_launches(Kernel, "launches")
+
+    def kernel(x):
+        Kernel.launches += 1
+        return x + 1
+
+    x = torch.zeros(3)
+    nodes = StandInNodes(torch.zeros(8, dtype=torch.int64))
+
+    def run():
+        jit._LOCAL.conditional = nodes
+        try:
+            h1 = kernel(x)
+            return jit.cond(h1.sum() > 10, lambda: h1, lambda: jit.cond(
+                h1.sum() > 1, lambda: kernel(h1), lambda: kernel(kernel(h1))))
+        finally:
+            jit._LOCAL.conditional = None
+
+    out, launches = jit._captured_launches(run)
+    assert [e[0] for e in nodes.log] == ["begin", "end", "begin", "begin", "end", "begin",
+                                         "end", "end"]
+    assert [e[1] for e in nodes.log if e[0] == "begin"] == [1, 1, 2, 2]
+    assert launches == (2, 1)  # the outer cond's two handle kernels, h1
+    # the inner bodies (1 and 2 kernels), then the outer false body (the
+    # inner cond's two handle kernels)
+    assert nodes.bodies == [(0, 1), (0, 2), (2, 0)]
+    assert nodes.counts.tolist() == [1, 1, 1, 0, 0, 0, 0, 0]  # each body's add, once
+    assert (jit._Conditional.launches, Kernel.launches) == (0, 0)
+    assert_same(out, torch.full((3,), 3.0)) and (x == 0).all()
+
+
+def test_fold_launches(monkeypatch):
+    """The fold adds each body's launches as many times as its count says,
+    for every graph (each with its own room for counts), and zeroes the
+    counts; a released graph is folded first."""
+    class Kernel:
+        launches = 0
+        shapes = Counter()
+
+    monkeypatch.setattr(jit, "_COUNTERS", [])
+    jit.count_launches(Kernel, "launches", "shapes")
+    monkeypatch.setattr(jit, "_GRAPHS", type(jit._GRAPHS)())
+
+    class StandIn:
+        reset_calls = 0
+
+        def reset(self):
+            StandIn.reset_calls += 1
+
+    def graph(bodies, counts):
+        return jit._Graph("site", StandIn(), [], None, [], (), (), (0, Counter()), 0, 0.0,
+                          tuple(bodies), torch.tensor(counts, dtype=torch.int64))
+
+    a = graph([(1, Counter({"B=1": 1})), (2, Counter({"B=2": 2}))], [3, 0, 0, 0])
+    b = graph([(5, Counter({"B=5": 5}))], [2, 0, 0, 0, 0, 0])
+    jit._GRAPHS.update(a=a, b=b)
+    jit.fold_launches()
+    assert Kernel.launches == 3 * 1 + 2 * 5
+    assert Kernel.shapes == Counter({"B=1": 3, "B=5": 10})
+    assert a.counts.tolist() == [0] * 4 and b.counts.tolist() == [0] * 6
+    b.counts[0] = 1
+    a.counts[1] = 1
+    b.release()
+    assert Kernel.launches == 13 + 5 and StandIn.reset_calls == 1
+    jit.fold_launches()
+    assert Kernel.launches == 18 + 2  # a's second body; b's count went in its release
+
+
+def test_graph_cache_evicts_least_recently_used(monkeypatch):
+    """Over `GRAPH_BYTES` the cache drops the least recently used graphs
+    (never the one just captured), keeps the byte total under the budget,
+    releases each dropped graph (reset, its sequences unpinned) and keeps
+    the pins of the graphs it holds."""
+    monkeypatch.setattr(jit, "_GRAPHS", type(jit._GRAPHS)())
+    monkeypatch.setattr(jit, "GRAPH_BYTES", 10)
+    monkeypatch.setattr(t_device, "_PINS", {})
+    released = []
+
+    class StandIn:
+        def __init__(self, name):
+            self.name = name
+
+        def reset(self):
+            released.append(self.name)
+
+    def insert(name, nbytes):
+        pinned = (("seq", name),)
+        t_device.pin(pinned)
+        jit._insert(name, jit._Graph(name, StandIn(name), [], None, [], (), pinned, (), nbytes,
+                                     0.0))
+
+    for name in "abc":
+        insert(name, 4)
+    assert jit.keys() == ["b", "c"] and released == ["a"]
+    jit._GRAPHS.move_to_end("b")  # a replay of b
+    insert("d", 4)
+    assert jit.keys() == ["b", "d"] and released == ["a", "c"]
+    assert sum(g.nbytes for g in jit._GRAPHS.values()) <= jit.GRAPH_BYTES
+    assert set(t_device._PINS) == {("seq", "b"), ("seq", "d")}
+    insert("e", 40)  # alone over the budget: it stays, the others go
+    assert jit.keys() == ["e"] and released == ["a", "c", "b", "d"]
+    assert set(t_device._PINS) == {("seq", "e")}
 
 
 # -- (c) keys ---------------------------------------------------------------------
@@ -371,14 +595,18 @@ def test_keys():
     assert k != jit.graph_key(UeDl.fft_estimate, UeDl(CELL, "wiener"), x, 4)
     assert k != jit.graph_key(UeDl.fft_estimate, UeDl(CELL), x[:1], 4)
     assert k != jit.graph_key(UeDl.fft_estimate, UeDl(CELL), x.to(torch.complex128), 4)
-    p, grid, ce, _, scr = sm_case(rng, PdschSm, 2)
-    keys = {jit.graph_key(PdschSm._decode2_front, PdschSm(**{
-        f: getattr(p, f) for f in p.__dataclass_fields__}), grid, ce, nv, scr) for nv in (0.1, 0.7)}
-    keys.add(jit.graph_key(PdschSm._decode2_front, p, grid, ce, 0.3, scr, n_iter=5))
-    # the RNTI seeds the descrambling, a traced input: every UE shares the key
-    keys.add(jit.graph_key(PdschSm._decode2_front, *sm_case(rng, PdschSm, 2, rnti=0x1234)))
+    p, grid, ce, _ = sm_case(rng, PdschSm, 2)
+    keys = {jit.graph_key(PdschSm.decode2, PdschSm(**{
+        f: getattr(p, f) for f in p.__dataclass_fields__}), grid, ce, nv) for nv in (0.1, 0.7)}
+    keys.add(jit.graph_key(PdschSm.decode2, p, grid, ce, 0.3, n_iter=5))
+    # the RNTI seeds the descrambling, a traced input (`bucket`): every UE
+    # shares the key
+    keys.add(jit.graph_key(PdschSm.decode2, *sm_case(rng, PdschSm, 2, rnti=0x1234)))
     assert len(keys) == 1
-    assert keys != {jit.graph_key(PdschSm._decode2_front, p, grid, ce, 0.3, scr, n_iter=4)}
+    assert keys != {jit.graph_key(PdschSm.decode2, p, grid, ce, 0.3, n_iter=4)}
+    pd = pdsch_case(rng)[1]
+    assert jit.graph_key(Pdsch.decode, *pd) == jit.graph_key(
+        Pdsch.decode, dataclasses.replace(pd[0], rnti=0x1234), *pd[1:])
     s = stream(rng, 12 * SF_LEN)
     track = {jit.graph_key(ue_sync._track_dev, s, pos, cfo, OfdmParams(6), 5, (1,))
              for pos, cfo in ((0, 0.0), (1234, 0.3), (-50, -0.1))}
